@@ -1,0 +1,32 @@
+"""Shape/type records for inputs and params (the port's ShapeDtypeStruct)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape and type of one tensor."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def spec_leaves(specs) -> list:
+    """The TensorSpec leaves of a dict/tuple tree, dict keys sorted."""
+    if isinstance(specs, TensorSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [leaf for k in sorted(specs) for leaf in spec_leaves(specs[k])]
+    return [leaf for s in specs for leaf in spec_leaves(s)]
+
+
+def zeros_like_specs(specs, device):
+    """A tree of zero tensors on ``device`` shaped like ``specs``."""
+    if isinstance(specs, TensorSpec):
+        return torch.zeros(specs.shape, dtype=specs.dtype, device=device)
+    if isinstance(specs, dict):
+        return {k: zeros_like_specs(v, device) for k, v in specs.items()}
+    return tuple(zeros_like_specs(s, device) for s in specs)
