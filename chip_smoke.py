@@ -2,8 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
   python3 chip_smoke.py                      # every phase, one card
-  python3 chip_smoke.py --phases env,build,parity
-  python3 chip_smoke.py --phases env,build,main,profile --trace-dir DIR
+  python3 chip_smoke.py --phases env,build,parity   # compile and check
 
 Phases, each of which raises on failure (exit code 1):
 
@@ -11,15 +10,19 @@ Phases, each of which raises on failure (exit code 1):
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
    with nvcc into the ignored ``build/kernels/`` and time the build;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the cases of ``tests/test_kernels.py`` plus the main path's shapes, in
-   float32 (atol/rtol 2e-5, TF32 off) and bfloat16 (3e-2);
+   the cases of ``tests/test_kernels.py``, the main path's shapes and rows
+   that see no key, in float32 (atol/rtol 2e-5, TF32 off) and bfloat16
+   (3e-2);
 4. main path: full-width qwen2-0.5b (24 layers, d_model 896, random
    weights from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
    generation endpoint decoding 16 tokens; launch counts checked per
-   forward and per decode step; the float32 model held against its
-   ``force_reference`` run (logits within 1e-3, identical tokens); the
-   bfloat16 kernel path compared with the reference path, teacher-forced;
+   forward and per decode step; the bfloat16 kernel path compared with
+   the reference path, teacher-forced; a torch.profiler trace of a
+   prefill and 4 decode steps (device-busy time, idle share; trace in
+   ``build/profile/``); the float32 model held against its
+   ``force_reference`` run, teacher-forced (every step's logits within
+   1e-3) and served (last-position logits within 1e-3, identical tokens);
 5. times: each kernel, its plain version, the PyTorch library call and
    the bound, at the main path's shapes and a long one.
 
@@ -43,7 +46,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "times")
-OPTIONAL = ("profile",)       # a torch.profiler pass inside "main"
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -140,6 +142,8 @@ def phase_parity(torch, ops, ref):
         (1, 130, 130, 4, 2, 80, 40, True, None, None, 0),      # dh 80, dv 40
         (1, 128, 128, 2, 1, 256, 256, True, None, None, 0),    # dh 256
         (1, 192, 192, 4, 2, 64, 64, False, 80, None, 0),       # window only
+        (1, 128, 64, 4, 2, 64, 64, True, 16, None, 0),         # rows >= 79
+        (1, 64, 64, 4, 2, 32, 32, False, 16, None, 100),       # see no key
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -170,6 +174,10 @@ def phase_parity(torch, ops, ref):
         (3, 100, 14, 2, 64, None, None, [99, 0, 50]),           # ragged S
         (2, 256, 32, 2, 64, None, None, [255, 77]),             # G 16
         (1, 128, 32, 1, 128, None, None, [127]),                # G 32, dv 128
+        # rows that see no slot: past a plain window, pos -1, ring pos -3
+        (2, 256, 4, 2, 64, 64, None, [400, 100]),
+        (2, 128, 4, 2, 64, None, None, [-1, 5]),
+        (2, 64, 4, 2, 32, 64, None, [-3]),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -213,18 +221,17 @@ def _delta(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_main(torch, np, ops, tmp_root, engines, device="cuda", cfg=None,
-               trace_dir=None):
-    """Every engine it starts goes into ``engines`` for the caller to
-    close.  ``device``/``cfg`` let the phase be rehearsed on the CPU at a
-    small size; on the card it runs full-width qwen2-0.5b."""
+def phase_main(torch, np, ops, tmp_root, engines):
+    """Full-width qwen2-0.5b on the card.  Every engine it starts goes
+    into ``engines`` for the caller to close."""
     from repro_torch.configs import get_config
     from repro_torch.core import FunctionSpec
     from repro_torch.models import make_model
     from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine,
                                      WeightStore)
 
-    cfg = cfg or get_config("qwen2-0.5b")
+    cfg = get_config("qwen2-0.5b")
+    device = "cuda"
     n_layers = cfg.n_layers
     B, S, MAX_LEN, N_TOK = 4, 128, 256, 16
     log(f"main: {cfg.name} full width: {n_layers} layers, d_model "
@@ -345,7 +352,9 @@ def phase_main(torch, np, ops, tmp_root, engines, device="cuda", cfg=None,
     # ---- bf16: kernel path vs reference path, teacher-forced ---------------
     toks = torch.as_tensor(prompt, device=device)
 
-    def run(reference: bool, feed=None):
+    def run(model, params, reference: bool, feed=None):
+        """Prefill, then N_TOK - 1 decode steps; with ``feed`` the tokens
+        are those of an earlier run (teacher forcing)."""
         ctx = ops.force_reference() if reference else contextlib.nullcontext()
         logits_steps, step_ms = [], []
         with ctx, torch.no_grad():
@@ -360,24 +369,28 @@ def phase_main(torch, np, ops, tmp_root, engines, device="cuda", cfg=None,
                 if feed is not None:
                     tok = feed[i]
                 fed.append(tok)
-                _sync(torch, device)
+                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits, cache = model.decode_step(params, cache, tok, pos)
-                _sync(torch, device)
+                torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 logits_steps.append(logits.float())
                 tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
                 pos = pos + 1
         return logits_steps, fed, step_ms
 
-    k_logits, fed, k_ms = run(False)
-    r_logits, _, r_ms = run(True, feed=fed)
-    diff = max(float((a - b).abs().max()) for a, b in zip(k_logits, r_logits))
-    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
-                for a, b in zip(k_logits, r_logits))
-    total = sum(a.shape[0] for a in k_logits)
-    check(all(bool(torch.isfinite(a).all()) for a in k_logits),
-          "bf16 teacher-forced logits not finite")
+    def compare(k_logits, r_logits, tag):
+        check(all(bool(torch.isfinite(a).all()) for a in k_logits),
+              f"{tag} teacher-forced logits not finite")
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(k_logits, r_logits))
+        agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                    for a, b in zip(k_logits, r_logits))
+        return diff, agree, sum(a.shape[0] for a in k_logits)
+
+    k_logits, fed, k_ms = run(model, params, False)
+    r_logits, _, r_ms = run(model, params, True, feed=fed)
+    diff, agree, total = compare(k_logits, r_logits, "bf16")
     out["bf16_teacher_forced"] = {"max_logit_diff": diff,
                                   "greedy_agree": agree, "of": total}
     out["decode_step_ms"] = sorted(k_ms)[len(k_ms) // 2]
@@ -387,17 +400,27 @@ def phase_main(torch, np, ops, tmp_root, engines, device="cuda", cfg=None,
         f"greedy agreement {agree}/{total}; decode step median "
         f"{out['decode_step_ms']:.2f} ms (reference path "
         f"{out['decode_step_ms_reference']:.2f} ms)")
-    if trace_dir is not None:
-        out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                       trace_dir)
+    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
+                                   ROOT / "build" / "profile")
     del params, model
 
     # ---- float32 parity: kernel path vs force_reference --------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     gen = torch.Generator(device=device).manual_seed(0)
-    params32 = make_model(cfg32, device=device).init(gen)
+    model32 = make_model(cfg32, device=device)
+    params32 = model32.init(gen)
     store.publish("qwen2f32", params32)
-    del params32
+    # every decode step's logits, teacher-forced: this is where K2 shows
+    k_logits, fed, _ = run(model32, params32, False)
+    r_logits, _, _ = run(model32, params32, True, feed=fed)
+    diff32, agree32, total32 = compare(k_logits, r_logits, "f32")
+    del k_logits, r_logits, params32, model32
+    out["f32_teacher_forced"] = {"max_logit_diff": diff32,
+                                 "greedy_agree": agree32, "of": total32}
+    log(f"main f32 kernel vs reference path, teacher-forced over {N_TOK} "
+        f"positions x {B} rows: max |logit diff| {diff32:.3e} (limit 1e-3), "
+        f"greedy agreement {agree32}/{total32}")
+    check(diff32 <= 1e-3, f"f32 teacher-forced logits differ by {diff32}")
     k32 = serve(cfg32, store, "qwen2f32", "f32 kernels")
     c0 = _counts(ops)
     with ops.force_reference():
@@ -413,11 +436,6 @@ def phase_main(torch, np, ops, tmp_root, engines, device="cuda", cfg=None,
     check(out["f32_tokens_equal"],
           f"f32 tokens differ: {k32['tokens']} vs {r32['tokens']}")
     return out
-
-
-def _sync(torch, device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
@@ -583,13 +601,12 @@ def phase_times(torch, ops, ref):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES + OPTIONAL}")
-    ap.add_argument("--trace-dir", default=str(ROOT / "build" / "profile"),
-                    help="where the profile phase writes its trace")
+                    help=f"comma-separated subset of {PHASES}; a subset "
+                         "(env,build,parity) is the quick compile-and-check "
+                         "run and prints no result line")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    check(set(phases) <= set(PHASES + OPTIONAL),
-          f"unknown phase in {phases}")
+    check(set(phases) <= set(PHASES), f"unknown phase in {phases}")
 
     import torch
     if not torch.cuda.is_available():
@@ -610,9 +627,7 @@ def main(argv=None) -> int:
     engines: list = []
     try:
         if "main" in phases:
-            results["main"] = phase_main(
-                torch, np, ops, tmp_root, engines,
-                trace_dir=args.trace_dir if "profile" in phases else None)
+            results["main"] = phase_main(torch, np, ops, tmp_root, engines)
     finally:
         for eng in engines:
             eng.close()
@@ -627,7 +642,9 @@ def main(argv=None) -> int:
     log(f"e2e: cold invoke {main_res['cold_ms']:.3f} ms, freshened invoke "
         f"{main_res['freshened_ms']:.3f} ms, warm invoke "
         f"{main_res['warm_ms']:.3f} ms, decode step (per token, batch 4) "
-        f"{main_res['decode_step_ms']:.3f} ms")
+        f"{main_res['decode_step_ms']:.3f} ms, decode device idle share "
+        f"under the profiler "
+        f"{main_res['profile'].get('decode_idle_share', 'not measured')}")
     records, short = [], []
     for name, meta in KERNEL_META.items():
         t_main = results["times"][(name, "main")]

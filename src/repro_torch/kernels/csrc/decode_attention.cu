@@ -24,6 +24,10 @@
 //    per query head, with running max/sum across tiles.
 // With B * Hkv blocks a small batch fills few of the 132 SMs; splitting
 // the cache across blocks (flash-decoding) is later work.
+// Masked slots score the oracles' finite NEG_INF, so a row with no valid
+// slot (pos < 0, or a plain window that ends before the cache does) gets
+// what the oracles give it, the mean of v over all S slots: the kernel
+// visits every slot for such a row.  The model's path never makes one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,6 +40,7 @@ constexpr int TN = 64;        // cache slots per tile
 constexpr int NT = 256;       // threads per block
 constexpr int NW = NT / 32;   // warps; warp w owns query heads w, w+8, ...
 constexpr int MAXG = 4 * NW;  // at most 32 query heads per KV head
+constexpr float NEG_INF = -1e30f;  // the oracles' mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -103,9 +108,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeParams p) {
   }
 
   // slots past pos are invalid in every mode (a ring slot j > pos holds
-  // the negative position j - W); a plain window also cuts the left
+  // the negative position j - W); a plain window also cuts the left.  In
+  // a ring, slot pos mod W holds pos itself, so [n_begin, n_end) is empty
+  // exactly when no slot is valid: then every slot is visited, all masked,
+  // and the softmax comes out uniform, as in the oracles.
   int n_end = min(p.S, pos + 1), n_begin = 0;
   if (!p.ring && p.window > 0) n_begin = max(0, pos - p.window + 1);
+  if (n_begin >= n_end) { n_begin = 0; n_end = p.S; }
   n_begin = (n_begin / TN) * TN;
 
   float m[4], l[4], acc[NACC];
@@ -131,7 +140,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeParams p) {
     for (int idx = tid; idx < p.G * TN; idx += NT) {
       const int g = idx / TN, j = idx - g * TN;
       const int slot = n0 + j;
-      float x = -INFINITY;
+      // a masked slot scores NEG_INF, as in the oracles; padding past the
+      // cache's end scores -inf and never counts
+      float x = slot < p.S ? NEG_INF : -INFINITY;
       if (slot < p.S && slot_valid(pos, slot, p.window, p.ring)) {
         const float* qr = Qs + g * p.dh;
         const float* kr = Ks + j * ld;
@@ -152,17 +163,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeParams p) {
       float mx = -INFINITY;
       for (int j = lane; j < TN; j += 32) mx = fmaxf(mx, row[j]);
       mx = warp_max(mx);
+      // slot n0 < S is in every tile, so m_new is finite
       const float m_new = fmaxf(m[gi], mx);
-      float alpha = 1.f, sum = 0.f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m[gi] - m_new);
-        for (int j = lane; j < TN; j += 32) {
-          const float e = expf(row[j] - m_new);
-          row[j] = e;
-          sum += e;
-        }
-      } else {
-        for (int j = lane; j < TN; j += 32) row[j] = 0.f;
+      const float alpha = expf(m[gi] - m_new);   // 0 on the first tile
+      float sum = 0.f;
+      for (int j = lane; j < TN; j += 32) {
+        const float e = expf(row[j] - m_new);
+        row[j] = e;
+        sum += e;
       }
       sum = warp_sum(sum);
       l[gi] = l[gi] * alpha + sum;

@@ -25,8 +25,10 @@
 //    (last) query tiles so the causal tail does not trail;
 //  * q/k/v are read in their (B, S, H, D) layout through strides, with
 //    no transposes; bf16 or float32 in, float32 inside.
-// Rows with no valid key at all (possible only with q_offset < 0 style
-// inputs the wrapper refuses, or a window that excludes every key) get 0.
+// A row with no valid key at all (a window or q_offset that puts every key
+// out of reach) gets what the oracles give it: they mask with a finite
+// NEG_INF, so their softmax is uniform and the row is the mean of v over
+// all Sk keys.  The model's path never makes such a row.
 // The mma.sync/wgmma tensor-core version is later work.
 
 #include <cuda_runtime.h>
@@ -211,10 +213,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
+    if (l[i] == 0.f) {                     // no valid key: mean of v
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        if (c >= p.dv) continue;
+        float sum = 0.f;
+        for (int key = 0; key < p.Sk; ++key) sum += to_f32(vp[key * p.v_ss + c]);
+        op[row * p.o_ss + c] = from_f32<T>(p.Sk > 0 ? sum / p.Sk : 0.f);
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < p.dv) op[row * p.o_ss + c] = from_f32<T>(l[i] > 0.f ? acc[i][j] / l[i] : 0.f);
+      if (c < p.dv) op[row * p.o_ss + c] = from_f32<T>(acc[i][j] / l[i]);
     }
   }
 }

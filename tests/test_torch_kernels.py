@@ -94,6 +94,26 @@ def test_flash_ref_q_offset(window):
                                          q_offset=128), "float32")
 
 
+@pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", [
+    (128, 64, True, 16, 0),       # rows 79.. see no key
+    (64, 64, False, 16, 100),     # every row sees no key
+])
+def test_flash_ref_rows_without_keys(Sq, Sk, causal, window, q_offset):
+    """A row that sees no key is the mean of v over all keys, as the jnp
+    oracle's finite NEG_INF makes it (the CUDA kernel matches this)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(10, 1, Sq, Sk, 4, 2, 32, "float32")
+    port = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                                   q_offset=q_offset)
+    _close(port, jlayers.flash_attention(jq, jk, jv, causal=causal,
+                                         window=window, q_chunk=64,
+                                         kv_chunk=64, q_offset=q_offset),
+           "float32")
+    mean_v = tv.float().mean(dim=1)                        # (B, Hkv, dv)
+    np.testing.assert_allclose(port[0, -1].numpy(),
+                               mean_v[0].repeat_interleave(2, 0).numpy(),
+                               **TOL["float32"])
+
+
 def test_flash_ref_head_dims_differ():
     (jq, tq), (jk, tk), (jv, tv) = _qkv(4, 1, 128, 128, 4, 2, 64, "float32",
                                         dv=32)
@@ -128,6 +148,29 @@ def test_decode_ref_ring_buffer(p):
                                interpret=True), "float32")
     _close(port, jlayers.decode_attention(jq, jk, jv, jpos, window=W),
            "float32")
+
+
+@pytest.mark.parametrize("S,window,pos", [
+    (256, 64, [400, 100]),        # past a plain window
+    (128, None, [-1, 5]),         # before the first slot
+    (64, 64, [-3, -3]),           # ring buffer before the first write
+])
+def test_decode_ref_rows_without_slots(S, window, pos):
+    """A row that sees no slot is the mean of v over all slots, as in the
+    jnp oracle and the Pallas kernel (the CUDA kernel matches this)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(11, 2, 1, S, 4, 2, 32, "float32")
+    pos = np.array(pos, np.int32)
+    port = ref.decode_attention_ref(tq, tk, tv, torch.from_numpy(pos),
+                                    window=window)
+    jpos = jnp.asarray(pos)
+    _close(port, pallas_decode(jq, jk, jv, jpos, window=window, kv_blk=32,
+                               interpret=True), "float32")
+    _close(port, jlayers.decode_attention(jq, jk, jv, jpos, window=window),
+           "float32")
+    mean_v = tv.float().mean(dim=1)                        # (B, Hkv, dv)
+    np.testing.assert_allclose(port[0, 0].numpy(),
+                               mean_v[0].repeat_interleave(2, 0).numpy(),
+                               **TOL["float32"])
 
 
 def test_decode_ref_window_softcap():
