@@ -10,11 +10,12 @@ Phases, each of which raises on failure (exit code 1):
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
    with nvcc into the ignored ``build/kernels/`` and time the build;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the cases of ``tests/test_kernels.py``, the main path's shapes and rows
-   that see no key, in float32 (atol/rtol 2e-5, TF32 off) and bfloat16
-   (3e-2);
-4. main path: full-width qwen2-0.5b (24 layers, d_model 896, random
-   weights from a seed) published to a ``WeightStore`` and served through
+   the cases of ``tests/test_kernels.py``, both served models' shapes and
+   rows that see no key: the attention kernels K1/K2 in float32
+   (atol/rtol 2e-5, TF32 off) and bfloat16 (3e-2), the RG-LRU scan K3 in
+   float32 (1e-6), also on a ragged width and strided views;
+4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
+   from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
    generation endpoint decoding 16 tokens; launch counts checked per
    forward and per decode step; the bfloat16 kernel path compared with
@@ -23,8 +24,14 @@ Phases, each of which raises on failure (exit code 1):
    ``build/profile/``); the float32 model held against its
    ``force_reference`` run, teacher-forced (every step's logits within
    1e-3) and served (last-position logits within 1e-3, identical tokens);
-5. times: each kernel, its plain version, the PyTorch library call and
-   the bound, at the main path's shapes and a long one.
+5. rgemma: full-width recurrentgemma-2b (26 layers, 18 RG-LRU through K3
+   and 8 local-attention through K1/K2 with window 2048; bfloat16)
+   served the same way, with its own launch-count window and profiler
+   pass; then a float32 copy cut to 5 layers (both segment shapes) held
+   against ``force_reference``, teacher-forced within 1e-3 with
+   identical tokens, at prompt 128 and past the 2048-slot ring's wrap;
+6. times: each kernel, its plain version, the PyTorch library call and
+   the bound, at each served model's shapes and a long one.
 
 It prints the kernel records on a ``kernels `` line and as one JSON
 object, then the card's name and power limit, and ends with
@@ -45,10 +52,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("env", "build", "parity", "main", "times")
+PHASES = ("env", "build", "parity", "main", "rgemma", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 KERNEL_META = {
     "flash_attention": dict(
@@ -57,6 +65,9 @@ KERNEL_META = {
     "decode_attention": dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:69"),
+    "rglru_scan": dict(
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:40"),
 }
 
 
@@ -123,7 +134,7 @@ def phase_parity(torch, ops, ref):
     torch.backends.cudnn.allow_tf32 = False
     log("parity: torch.backends.cuda.matmul.allow_tf32=False, "
         "torch.backends.cudnn.allow_tf32=False; tolerances f32 2e-5, "
-        "bf16 3e-2 (atol and rtol)")
+        "bf16 3e-2 (atol and rtol) for K1/K2, 1e-6 for K3 (float32)")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in KERNEL_META}
     # (B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap, q_offset)
@@ -144,6 +155,9 @@ def phase_parity(torch, ops, ref):
         (1, 192, 192, 4, 2, 64, 64, False, 80, None, 0),       # window only
         (1, 128, 64, 4, 2, 64, 64, True, 16, None, 0),         # rows >= 79
         (1, 64, 64, 4, 2, 32, 32, False, 16, None, 100),       # see no key
+        # recurrentgemma's attn_local: MQA, 10 query heads, dh 256
+        (4, 128, 128, 10, 1, 256, 256, True, 2048, None, 0),   # its main path
+        (1, 2100, 2100, 10, 1, 256, 256, True, 2048, None, 0), # window masks
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -178,6 +192,9 @@ def phase_parity(torch, ops, ref):
         (2, 256, 4, 2, 64, 64, None, [400, 100]),
         (2, 128, 4, 2, 64, None, None, [-1, 5]),
         (2, 64, 4, 2, 32, 64, None, [-3]),
+        # recurrentgemma: G = 10 (a ragged last warp), dh 256, window 2048
+        (4, 256, 10, 1, 256, 2048, None, [128, 131, 140, 143]),  # linear slots
+        (1, 2048, 10, 1, 256, 2048, None, [2047, 2048, 2100, 2107]),  # ring
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -204,15 +221,63 @@ def phase_parity(torch, ops, ref):
                     errs["decode_attention"][name], e)
                 check(ok, f"decode_attention {name} case {(B, S, Hq, Hkv, dh)} "
                       f"{kw} pos {pos.tolist()}: max abs err {e}")
+    n_cases = {"flash_attention": f"{len(flash_cases)} cases x 2 types",
+               "decode_attention": f"{len(decode_cases)} cases x 2 types"}
+    n_cases["rglru_scan"] = parity_rglru(torch, ops, ref, gen, errs)
     for kname, e in errs.items():
         log(f"parity {kname}: max abs err f32 {e['float32']:.3e} "
-            f"bf16 {e['bfloat16']:.3e} over {len(flash_cases) if kname == 'flash_attention' else len(decode_cases)} "
-            f"cases x 2 types: ok")
+            f"bf16 {_fmt(e['bfloat16'], '.3e')} over {n_cases[kname]}: ok")
     return errs
 
 
+def _fmt(x, spec):
+    return "n/a" if x is None else format(x, spec)
+
+
+def parity_rglru(torch, ops, ref, gen, errs):
+    """K3 against its plain version, float32 only (the scan's type), at
+    atol/rtol 1e-6: the sweep of tests/test_kernels.py with and without
+    h0, a ragged r, strided views, and the main and long shapes."""
+    tol = 1e-6
+    errs["rglru_scan"] = {"float32": 0.0, "bfloat16": None}
+    # (B, S, r, h0, channel-stride view)
+    cases = [(1, 64, 256, True, False), (2, 128, 512, True, False),
+             (3, 200, 384, True, False), (1, 64, 256, False, False),
+             (2, 128, 512, False, False), (3, 200, 384, False, False),
+             (2, 77, 2500, True, False),                # ragged r and S
+             (2, 50, 320, True, True),                  # strided views
+             (4, 128, 2560, False, False),              # main path
+             (1, 4096, 2560, True, False)]              # long
+    for B, S, r, with_h0, strided in cases:
+        width = 2 * r if strided else r
+        a = torch.sigmoid(_rand(torch, gen, (B, S, width),
+                                torch.float32))[..., :r]
+        b = _rand(torch, gen, (B, S, width), torch.float32)[..., :r]
+        h0 = (_rand(torch, gen, (B, width), torch.float32)[:, :r]
+              if with_h0 else None)
+        y, hT = ops.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        wy, wh = ref.rglru_scan_ref(a, b, h0)
+        for got, want in ((y, wy), (hT, wh)):
+            check(bool(torch.isfinite(got).all()), "K3 output is not finite")
+            err = (got - want).abs()
+            e = float(err.max()) if err.numel() else 0.0
+            errs["rglru_scan"]["float32"] = max(errs["rglru_scan"]["float32"], e)
+            check(bool((err <= tol + tol * want.abs()).all()),
+                  f"rglru_scan case {(B, S, r, with_h0, strided)}: max abs "
+                  f"err {e}")
+    a = torch.zeros((2, 16, 8), device="cuda")
+    try:
+        ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("K3 took a non-contiguous channel dimension")
+    return f"{len(cases)} cases, float32"
+
+
 # ---------------------------------------------------------------------------
-# phase 4
+# phases 4 and 5: the served paths
 def _counts(ops):
     return {op.name: op.launches for op in ops.KERNELS}
 
@@ -221,17 +286,184 @@ def _delta(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_main(torch, np, ops, tmp_root, engines):
-    """Full-width qwen2-0.5b on the card.  Every engine it starts goes
-    into ``engines`` for the caller to close."""
-    from repro_torch.configs import get_config
+def _times(counts, n):
+    return {k: n * v for k, v in counts.items()}
+
+
+def gen_spec(ep, name, n_tok, max_len):
+    """A generation function on ``ep``'s plan plus its session entries."""
     from repro_torch.core import FunctionSpec
+
+    def plan_factory(rt):
+        base = ep.build_plan(rt)
+        base.entries.extend(ep.session_plan_entries(max_len))
+        return base
+
+    def code(ctx, args):
+        return ep.generate(ctx, args["tokens"], n_steps=n_tok,
+                           max_len=max_len, plan_offset=3)
+    return FunctionSpec(name, code, plan_factory=plan_factory, app="serving")
+
+
+def serve(np, ops, cfg_, store, name, tag, prompt, engines, *, max_len,
+          n_tok):
+    """Through ``ServingEngine`` on the card: a cold invoke, a freshened
+    one, a warm one, and a generation of ``n_tok`` tokens from a
+    freshened session cache.  Every engine goes into ``engines`` for the
+    caller to close."""
+    from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine)
+    B, S = prompt.shape
+    res = {}
+    eng_cold = ServingEngine()
+    engines.append(eng_cold)
+    rt_cold = eng_cold.deploy(ModelEndpoint(
+        name, cfg_, store, Executor(), batch_size=B, seq_len=S,
+        device="cuda"))
+    c0 = _counts(ops)
+    t0 = time.perf_counter()
+    cold = eng_cold.invoke(name, prompt, freshen_successors=False)
+    res["cold_ms"] = (time.perf_counter() - t0) * 1e3
+    res["cold_launches"] = _delta(c0, _counts(ops))
+    st = rt_cold.fr_state.stats()
+    check(st["inline"] >= 3, f"{tag} cold invoke paid {st} inline")
+    res["cold_timing"] = cold["timing"]
+
+    eng = ServingEngine()
+    engines.append(eng)
+    ep = ModelEndpoint(name, cfg_, store, Executor(), batch_size=B,
+                       seq_len=S, device="cuda")
+    rt = eng.deploy(ep)
+    rt.freshen(blocking=True)
+    st = rt.fr_state.stats()
+    check(st["freshened"] >= 3 and st["inline"] == 0,
+          f"{tag} freshen left {st}")
+    c0 = _counts(ops)
+    t0 = time.perf_counter()
+    fresh = eng.invoke(name, prompt, freshen_successors=False)
+    res["freshened_ms"] = (time.perf_counter() - t0) * 1e3
+    res["freshened_launches"] = _delta(c0, _counts(ops))
+    t0 = time.perf_counter()
+    warm = eng.invoke(name, prompt, freshen_successors=False)
+    res["warm_ms"] = (time.perf_counter() - t0) * 1e3
+    res["warm_timing"] = warm["timing"]
+    for r in (cold, fresh, warm):
+        check(r["logits"].shape == (B, 1, cfg_.vocab_size),
+              f"{tag} logits shape {r['logits'].shape}")
+        check(bool(np.isfinite(r["logits"]).all()),
+              f"{tag} logits not finite")
+    check(np.array_equal(cold["logits"], fresh["logits"]),
+          f"{tag} cold and freshened logits differ")
+    res["logits"] = warm["logits"]
+
+    rt_gen = eng.scheduler.register(
+        gen_spec(ep, f"{name}/generate", n_tok, max_len))
+    rt_gen.init()
+    rt_gen.freshen(blocking=True)
+    c0 = _counts(ops)
+    t0 = time.perf_counter()
+    tokens = eng.invoke(f"{name}/generate", prompt, freshen_successors=False)
+    res["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    res["generate_launches"] = _delta(c0, _counts(ops))
+    check(len(tokens) == n_tok and all(0 <= t < cfg_.vocab_size
+                                       for t in tokens),
+          f"{tag} generated {tokens}")
+    res["tokens"] = tokens
+    return res
+
+
+def check_launches(res, per_fwd, per_step, n_tok, tag):
+    """A cold invoke is the warm-up forward on zeros plus the request's;
+    a generation is one prefill forward and n_tok - 1 decode steps."""
+    check(res["cold_launches"] == _times(per_fwd, 2),
+          f"{tag} cold invoke launches {res['cold_launches']}")
+    check(res["freshened_launches"] == per_fwd,
+          f"{tag} freshened invoke launches {res['freshened_launches']}")
+    want = {k: per_fwd[k] + (n_tok - 1) * per_step[k] for k in per_fwd}
+    check(res["generate_launches"] == want,
+          f"{tag} generation launches {res['generate_launches']} != {want}")
+
+
+def run_steps(torch, ops, model, params, toks, max_len, n_tok, *,
+              reference, feed=None):
+    """Prefill, then n_tok - 1 decode steps; with ``feed`` the tokens are
+    those of an earlier run (teacher forcing).  Returns (each position's
+    logits, the tokens fed, each decode step's ms)."""
+    B, S = toks.shape
+    ctx = ops.force_reference() if reference else contextlib.nullcontext()
+    logits_steps, step_ms, fed = [], [], []
+    with ctx, torch.no_grad():
+        cache = model.init_cache(B, max_len)
+        logits, cache = model.prefill(params, toks, max_len=max_len,
+                                      cache=cache)
+        logits_steps.append(logits.float())
+        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        pos = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+        for i in range(n_tok - 1):
+            if feed is not None:
+                tok = feed[i]
+            fed.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits_steps.append(logits.float())
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            pos = pos + 1
+    return logits_steps, fed, step_ms
+
+
+def compare(torch, k_logits, r_logits, tag):
+    """(max |logit diff|, greedy agreement, positions x rows)."""
+    check(all(bool(torch.isfinite(a).all()) for a in k_logits),
+          f"{tag} teacher-forced logits not finite")
+    diff = max(float((a - b).abs().max()) for a, b in zip(k_logits, r_logits))
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(k_logits, r_logits))
+    return diff, agree, sum(a.shape[0] for a in k_logits)
+
+
+def kernel_vs_reference(torch, ops, model, params, toks, max_len, n_tok):
+    """The kernel path, then the reference path fed the kernel path's
+    tokens: (max |logit diff|, agreement, total, kernel and reference
+    decode-step medians in ms)."""
+    k_logits, fed, k_ms = run_steps(torch, ops, model, params, toks, max_len,
+                                    n_tok, reference=False)
+    r_logits, _, r_ms = run_steps(torch, ops, model, params, toks, max_len,
+                                  n_tok, reference=True, feed=fed)
+    diff, agree, total = compare(torch, k_logits, r_logits, "teacher-forced")
+    return diff, agree, total, _median(k_ms), _median(r_ms)
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def _publish(store, name, params):
+    t0 = time.perf_counter()
+    store.publish(name, params)
+    wall = time.perf_counter() - t0
+    log(f"published {name}: {store.nbytes(name) / 1e9:.3f} GB in "
+        f"{wall:.2f} s")
+    return wall
+
+
+def _log_served(tag, res, n_tok, launches):
+    log(f"{tag}: cold invoke {res['cold_ms']:.1f} ms (timing "
+        f"{json.dumps({k: round(v * 1e3, 2) for k, v in res['cold_timing'].items()})} ms), "
+        f"freshened invoke {res['freshened_ms']:.1f} ms, warm invoke "
+        f"{res['warm_ms']:.1f} ms, generate {n_tok} tokens "
+        f"{res['generate_ms']:.1f} ms; launches {launches}")
+    log(f"{tag}: tokens {res['tokens']}")
+
+
+def phase_main(torch, np, ops, tmp_root, engines):
+    """Full-width qwen2-0.5b on the card."""
+    from repro_torch.configs import get_config
     from repro_torch.models import make_model
-    from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine,
-                                     WeightStore)
+    from repro_torch.serving import WeightStore
 
     cfg = get_config("qwen2-0.5b")
-    device = "cuda"
     n_layers = cfg.n_layers
     B, S, MAX_LEN, N_TOK = 4, 128, 256, 16
     log(f"main: {cfg.name} full width: {n_layers} layers, d_model "
@@ -239,192 +471,69 @@ def phase_main(torch, np, ops, tmp_root, engines):
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{cfg.dtype}, {cfg.param_count() / 1e6:.1f} M params; batch {B}, "
         f"prompt {S}, cache {MAX_LEN}, {N_TOK} tokens")
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(B, S),
+                                               dtype=np.int32)
     out: dict = {}
 
-    def gen_spec(ep, name):
-        def plan_factory(rt):
-            base = ep.build_plan(rt)
-            base.entries.extend(ep.session_plan_entries(MAX_LEN))
-            return base
-
-        def code(ctx, args):
-            return ep.generate(ctx, args["tokens"], n_steps=N_TOK,
-                               max_len=MAX_LEN, plan_offset=3)
-        return FunctionSpec(name, code, plan_factory=plan_factory,
-                            app="serving")
-
-    def serve(cfg_, store, name, tag):
-        """cold invoke, freshened invoke, warm invoke, generation."""
-        res = {}
-        eng_cold = ServingEngine()
-        engines.append(eng_cold)
-        rt_cold = eng_cold.deploy(ModelEndpoint(
-            name, cfg_, store, Executor(), batch_size=B, seq_len=S,
-            device=device))
-        c0 = _counts(ops)
-        t0 = time.perf_counter()
-        cold = eng_cold.invoke(name, prompt, freshen_successors=False)
-        res["cold_ms"] = (time.perf_counter() - t0) * 1e3
-        res["cold_launches"] = _delta(c0, _counts(ops))
-        st = rt_cold.fr_state.stats()
-        check(st["inline"] >= 3, f"{tag} cold invoke paid {st} inline")
-        res["cold_timing"] = cold["timing"]
-
-        eng = ServingEngine()
-        engines.append(eng)
-        ep = ModelEndpoint(name, cfg_, store, Executor(), batch_size=B,
-                           seq_len=S, device=device)
-        rt = eng.deploy(ep)
-        rt.freshen(blocking=True)
-        st = rt.fr_state.stats()
-        check(st["freshened"] >= 3 and st["inline"] == 0,
-              f"{tag} freshen left {st}")
-        c0 = _counts(ops)
-        t0 = time.perf_counter()
-        fresh = eng.invoke(name, prompt, freshen_successors=False)
-        res["freshened_ms"] = (time.perf_counter() - t0) * 1e3
-        res["freshened_launches"] = _delta(c0, _counts(ops))
-        t0 = time.perf_counter()
-        warm = eng.invoke(name, prompt, freshen_successors=False)
-        res["warm_ms"] = (time.perf_counter() - t0) * 1e3
-        res["warm_timing"] = warm["timing"]
-        for r in (cold, fresh, warm):
-            check(r["logits"].shape == (B, 1, cfg_.vocab_size),
-                  f"{tag} logits shape {r['logits'].shape}")
-            check(bool(np.isfinite(r["logits"]).all()),
-                  f"{tag} logits not finite")
-        check(np.array_equal(cold["logits"], fresh["logits"]),
-              f"{tag} cold and freshened logits differ")
-        res["logits"] = warm["logits"]
-
-        rt_gen = eng.scheduler.register(gen_spec(ep, f"{name}/generate"))
-        rt_gen.init()
-        rt_gen.freshen(blocking=True)
-        c0 = _counts(ops)
-        t0 = time.perf_counter()
-        tokens = eng.invoke(f"{name}/generate", prompt,
-                            freshen_successors=False)
-        res["generate_ms"] = (time.perf_counter() - t0) * 1e3
-        res["generate_launches"] = _delta(c0, _counts(ops))
-        check(len(tokens) == N_TOK and all(0 <= t < cfg_.vocab_size
-                                           for t in tokens),
-              f"{tag} generated {tokens}")
-        res["tokens"] = tokens
-        return res
-
     # ---- bf16 main path: through the kernels -------------------------------
-    gen = torch.Generator(device=device).manual_seed(0)
-    model = make_model(cfg, device=device)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = make_model(cfg, device="cuda")
     params = model.init(gen)
     store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
-    t0 = time.perf_counter()
-    store.publish("qwen2", params)
-    out["publish_s"] = time.perf_counter() - t0
-    log(f"main: published {store.nbytes('qwen2') / 1e9:.3f} GB in "
-        f"{out['publish_s']:.2f} s")
+    out["publish_s"] = _publish(store, "qwen2", params)
 
     ops.reset_launches()                      # the main path's run starts
-    bf = serve(cfg, store, "qwen2", "bf16")
+    bf = serve(np, ops, cfg, store, "qwen2", "bf16", prompt, engines,
+               max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
-    per_fwd = {"flash_attention": n_layers, "decode_attention": 0}
-    # cold invoke = warm-up forward on zeros + the request's forward
-    check(bf["cold_launches"] == {k: 2 * v for k, v in per_fwd.items()},
-          f"cold invoke launches {bf['cold_launches']}")
-    check(bf["freshened_launches"] == per_fwd,
-          f"freshened invoke launches {bf['freshened_launches']}")
-    want_gen = {"flash_attention": n_layers,
-                "decode_attention": n_layers * (N_TOK - 1)}
-    check(bf["generate_launches"] == want_gen,
-          f"generation launches {bf['generate_launches']} != {want_gen}")
-    check(all(v > 0 for v in out["launches"].values()),
+    check_launches(bf, {"flash_attention": n_layers, "decode_attention": 0,
+                        "rglru_scan": 0},
+                   {"flash_attention": 0, "decode_attention": n_layers,
+                    "rglru_scan": 0}, N_TOK, "qwen2 bf16")
+    check(out["launches"]["flash_attention"] > 0
+          and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the main path: {out['launches']}")
-    log(f"main bf16: cold invoke {bf['cold_ms']:.1f} ms "
-        f"(timing {json.dumps({k: round(v * 1e3, 2) for k, v in bf['cold_timing'].items()})} ms), "
-        f"freshened invoke {bf['freshened_ms']:.1f} ms, warm invoke "
-        f"{bf['warm_ms']:.1f} ms, generate {N_TOK} tokens "
-        f"{bf['generate_ms']:.1f} ms; launches {out['launches']}")
-    log(f"main bf16: tokens {bf['tokens']}")
+    _log_served("main bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
                                    "generate_ms")})
 
     # ---- bf16: kernel path vs reference path, teacher-forced ---------------
-    toks = torch.as_tensor(prompt, device=device)
-
-    def run(model, params, reference: bool, feed=None):
-        """Prefill, then N_TOK - 1 decode steps; with ``feed`` the tokens
-        are those of an earlier run (teacher forcing)."""
-        ctx = ops.force_reference() if reference else contextlib.nullcontext()
-        logits_steps, step_ms = [], []
-        with ctx, torch.no_grad():
-            cache = model.init_cache(B, MAX_LEN)
-            logits, cache = model.prefill(params, toks, max_len=MAX_LEN,
-                                          cache=cache)
-            logits_steps.append(logits.float())
-            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-            pos = torch.full((B,), S, dtype=torch.int32, device=device)
-            fed = []
-            for i in range(N_TOK - 1):
-                if feed is not None:
-                    tok = feed[i]
-                fed.append(tok)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, cache = model.decode_step(params, cache, tok, pos)
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                logits_steps.append(logits.float())
-                tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-                pos = pos + 1
-        return logits_steps, fed, step_ms
-
-    def compare(k_logits, r_logits, tag):
-        check(all(bool(torch.isfinite(a).all()) for a in k_logits),
-              f"{tag} teacher-forced logits not finite")
-        diff = max(float((a - b).abs().max())
-                   for a, b in zip(k_logits, r_logits))
-        agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
-                    for a, b in zip(k_logits, r_logits))
-        return diff, agree, sum(a.shape[0] for a in k_logits)
-
-    k_logits, fed, k_ms = run(model, params, False)
-    r_logits, _, r_ms = run(model, params, True, feed=fed)
-    diff, agree, total = compare(k_logits, r_logits, "bf16")
+    toks = torch.as_tensor(prompt, device="cuda")
+    diff, agree, total, k_ms, r_ms = kernel_vs_reference(
+        torch, ops, model, params, toks, MAX_LEN, N_TOK)
     out["bf16_teacher_forced"] = {"max_logit_diff": diff,
                                   "greedy_agree": agree, "of": total}
-    out["decode_step_ms"] = sorted(k_ms)[len(k_ms) // 2]
-    out["decode_step_ms_reference"] = sorted(r_ms)[len(r_ms) // 2]
+    out["decode_step_ms"], out["decode_step_ms_reference"] = k_ms, r_ms
     log(f"main bf16 kernel vs reference path, teacher-forced over "
         f"{N_TOK} positions x {B} rows: max |logit diff| {diff:.4e}, "
         f"greedy agreement {agree}/{total}; decode step median "
-        f"{out['decode_step_ms']:.2f} ms (reference path "
-        f"{out['decode_step_ms_reference']:.2f} ms)")
+        f"{k_ms:.2f} ms (reference path {r_ms:.2f} ms)")
     out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile")
+                                   ROOT / "build" / "profile" / "qwen2")
     del params, model
 
     # ---- float32 parity: kernel path vs force_reference --------------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    gen = torch.Generator(device=device).manual_seed(0)
-    model32 = make_model(cfg32, device=device)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model32 = make_model(cfg32, device="cuda")
     params32 = model32.init(gen)
     store.publish("qwen2f32", params32)
     # every decode step's logits, teacher-forced: this is where K2 shows
-    k_logits, fed, _ = run(model32, params32, False)
-    r_logits, _, _ = run(model32, params32, True, feed=fed)
-    diff32, agree32, total32 = compare(k_logits, r_logits, "f32")
-    del k_logits, r_logits, params32, model32
+    diff32, agree32, total32, _, _ = kernel_vs_reference(
+        torch, ops, model32, params32, toks, MAX_LEN, N_TOK)
+    del params32, model32
     out["f32_teacher_forced"] = {"max_logit_diff": diff32,
                                  "greedy_agree": agree32, "of": total32}
     log(f"main f32 kernel vs reference path, teacher-forced over {N_TOK} "
         f"positions x {B} rows: max |logit diff| {diff32:.3e} (limit 1e-3), "
         f"greedy agreement {agree32}/{total32}")
     check(diff32 <= 1e-3, f"f32 teacher-forced logits differ by {diff32}")
-    k32 = serve(cfg32, store, "qwen2f32", "f32 kernels")
+    k32 = serve(np, ops, cfg32, store, "qwen2f32", "f32 kernels", prompt,
+                engines, max_len=MAX_LEN, n_tok=N_TOK)
     c0 = _counts(ops)
     with ops.force_reference():
-        r32 = serve(cfg32, store, "qwen2f32", "f32 reference")
+        r32 = serve(np, ops, cfg32, store, "qwen2f32", "f32 reference",
+                    prompt, engines, max_len=MAX_LEN, n_tok=N_TOK)
     check(_counts(ops) == c0, "force_reference run launched a kernel")
     d32 = float(np.abs(k32["logits"] - r32["logits"]).max())
     out["f32_logit_diff"] = d32
@@ -435,6 +544,106 @@ def phase_main(torch, np, ops, tmp_root, engines):
     check(d32 <= 1e-3, f"f32 logits differ by {d32}")
     check(out["f32_tokens_equal"],
           f"f32 tokens differ: {k32['tokens']} vs {r32['tokens']}")
+    return out
+
+
+def phase_rgemma(torch, np, ops, tmp_root, engines):
+    """Full-width recurrentgemma-2b on the card: RG-LRU prefill through K3,
+    local attention through K1/K2 (window 2048)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config("recurrentgemma-2b")
+    kinds = cfg.layer_kinds
+    n_attn, n_rec = kinds.count("attn_local"), kinds.count("rglru")
+    B, S, MAX_LEN, N_TOK = 4, 128, 256, 16
+    log(f"rgemma: {cfg.name} full width, not cut: {cfg.n_layers} layers "
+        f"({n_rec} rglru, {n_attn} attn_local, window {cfg.window_size}), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, d_rnn {cfg.rglru.d_rnn}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; batch {B}, prompt {S}, "
+        f"cache {MAX_LEN}, {N_TOK} tokens")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(B, S),
+                                               dtype=np.int32)
+    toks = torch.as_tensor(prompt, device="cuda")
+    out: dict = {}
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = make_model(cfg, device="cuda")
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
+    out["publish_s"] = _publish(store, "rgemma", params)
+
+    ops.reset_launches()                      # this path's run starts
+    bf = serve(np, ops, cfg, store, "rgemma", "rgemma bf16", prompt, engines,
+               max_len=MAX_LEN, n_tok=N_TOK)
+    out["launches"] = _counts(ops)            # ... and ends here
+    check_launches(bf, {"flash_attention": n_attn, "decode_attention": 0,
+                        "rglru_scan": n_rec},
+                   {"flash_attention": 0, "decode_attention": n_attn,
+                    "rglru_scan": 0}, N_TOK, "rgemma bf16")
+    check(all(v > 0 for v in out["launches"].values()),
+          f"a kernel was not launched on the rgemma path: {out['launches']}")
+    _log_served("rgemma bf16", bf, N_TOK, out["launches"])
+    out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
+                                   "generate_ms", "cold_timing")})
+
+    diff, agree, total, k_ms, r_ms = kernel_vs_reference(
+        torch, ops, model, params, toks, MAX_LEN, N_TOK)
+    out["bf16_teacher_forced"] = {"max_logit_diff": diff,
+                                  "greedy_agree": agree, "of": total}
+    out["decode_step_ms"], out["decode_step_ms_reference"] = k_ms, r_ms
+    log(f"rgemma bf16 kernel vs reference path, teacher-forced over {N_TOK} "
+        f"positions x {B} rows: max |logit diff| {diff:.4e}, greedy "
+        f"agreement {agree}/{total}; decode step median {k_ms:.2f} ms "
+        f"(reference path {r_ms:.2f} ms)")
+    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
+                                   ROOT / "build" / "profile" / "rgemma")
+    del params, model
+    torch.cuda.empty_cache()
+
+    # ---- float32 gate: full width, depth cut to both segment shapes --------
+    cfg32 = dataclasses.replace(
+        cfg, dtype="float32", n_layers=5,
+        segments=((("rglru", "rglru", "attn_local"), 1),
+                  (("rglru", "rglru"), 1)))
+    log(f"rgemma f32 gate: depth cut from {cfg.n_layers} to "
+        f"{cfg32.n_layers} layers, segments {cfg32.segments} (both segment "
+        f"shapes of the full model); widths as published")
+    model32 = make_model(cfg32, device="cuda")
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(0))
+    gates = {}
+    long_prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(1, 2100), dtype=np.int32)
+    for label, p, max_len, n_tok in (
+            ("prompt 128", toks, MAX_LEN, N_TOK),
+            ("past the wrap", torch.as_tensor(long_prompt, device="cuda"),
+             2200, 9)):
+        ring = model32.cache_shapes(p.shape[0], max_len)[0][2]["k"][2]
+        diff32, agree32, total32, _, _ = kernel_vs_reference(
+            torch, ops, model32, params32, p, max_len, n_tok)
+        gates[label] = {"max_logit_diff": diff32, "greedy_agree": agree32,
+                        "of": total32}
+        log(f"rgemma f32 kernel vs reference path [{label}: batch "
+            f"{p.shape[0]}, prompt {p.shape[1]}, cache {max_len}, attn_local "
+            f"cache {ring} slots, {n_tok - 1} decode steps at positions "
+            f"{p.shape[1]}-{p.shape[1] + n_tok - 2}], teacher-forced: max "
+            f"|logit diff| {diff32:.3e} (limit 1e-3), greedy agreement "
+            f"{agree32}/{total32}")
+        check(diff32 <= 1e-3,
+              f"rgemma f32 [{label}] logits differ by {diff32}")
+        check(agree32 == total32,
+              f"rgemma f32 [{label}] greedy tokens differ: {agree32}/{total32}")
+    check(model32.cache_shapes(1, 2200)[0][2]["k"][2] == cfg.window_size,
+          "the past-the-wrap run does not use a ring cache")
+    out["f32_gates"] = gates
+    del params32, model32
+    torch.cuda.empty_cache()
     return out
 
 
@@ -520,7 +729,7 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
 
 
 # ---------------------------------------------------------------------------
-# phase 5
+# phase 6
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -535,8 +744,29 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def device_ms(torch, fn, iters=20):
+    """Device time per call of ``fn``: the launches are queued behind a
+    kernel that spins 5e7 clock cycles (~25 ms), so the
+    events time the card running them back to back, without the host's
+    launch cost that ``cuda_ms`` sees at small shapes.  Fails if the
+    host had not queued them all before the spin ended."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    check(not start.query(), "the host queued the launches slower than the "
+          "card's spin: device time not measured")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -550,50 +780,81 @@ def phase_times(torch, ops, ref):
     def sdpa(*a, **kw):
         return F.scaled_dot_product_attention(*a, **kw, enable_gqa=True)
 
-    for label, (B, S) in (("main", (4, 128)), ("long", (1, 4096))):
-        Hq, Hkv, dh = 14, 2, 64
+    # (label, B, S, Hq, Hkv, dh, window): qwen2's main and long shapes,
+    # recurrentgemma's attn_local at its main path's shape
+    for label, B, S, Hq, Hkv, dh, window in (
+            ("main", 4, 128, 14, 2, 64, None),
+            ("long", 1, 4096, 14, 2, 64, None),
+            ("rgemma", 4, 128, 10, 1, 256, 2048)):
         q = _rand(torch, gen, (B, S, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         v = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = S * (S + 1) // 2
+        w = min(S, window or S)
+        pairs = sum(min(i + 1, w) for i in range(S))      # causal, windowed
         flops = B * Hq * pairs * 2 * (dh + dh)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
         bound, by = _bound(flops, nbytes)
+        check(window is None or window >= S,
+              "the sdpa yardstick assumes the window covers the sequence")
+        def kern():
+            return ops.flash_attention(q, k, v, window=window)
         rows[("flash_attention", label)] = dict(
-            shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} bf16 causal",
-            ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v)),
-            plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
-                             iters=5),
+            shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} bf16 causal"
+                  + (f" window={window}" if window else ""),
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
+            plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, window=window), iters=5),
             library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True)),
             bound_ms=bound, bound_by=by)
-    for label, (B, S, p) in (("main", (4, 256, 143)),
-                             ("long", (8, 4096, 4095))):
-        Hq, Hkv, dh = 14, 2, 64
+    for label, B, S, p, Hq, Hkv, dh, window in (
+            ("main", 4, 256, 143, 14, 2, 64, None),
+            ("long", 8, 4096, 4095, 14, 2, 64, None),
+            ("rgemma", 4, 256, 143, 10, 1, 256, 2048)):
         q = _rand(torch, gen, (B, 1, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         v = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
-        mask = ref.decode_slot_valid(pos, S, None)[:, None, None, :]
+        mask = ref.decode_slot_valid(pos, S, window)[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        valid = min(p + 1, S)
+        valid = int(ref.decode_slot_valid(pos, S, window)[0].sum())
         flops = B * Hq * valid * 2 * (dh + dh)
         nbytes = 2 * (B * Hkv * valid * 2 * dh + 2 * q.numel()) + 4 * B
         bound, by = _bound(flops, nbytes)
+        def kern():
+            return ops.decode_attention(q, k, v, pos, window=window)
         rows[("decode_attention", label)] = dict(
-            shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh} bf16",
-            ms=cuda_ms(torch, lambda: ops.decode_attention(q, k, v, pos)),
+            shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh} bf16"
+                  + (f" window={window}" if window else ""),
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.decode_attention_ref(
-                q, k, v, pos)),
+                q, k, v, pos, window=window)),
             library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt,
                                                     attn_mask=mask)),
             bound_ms=bound, bound_by=by)
+    # K3 as the main path calls it (no h0): a, b read, y and h_T written,
+    # a multiply and an add per element in float32 on the CUDA cores
+    for label, B, S, r in (("main", 4, 128, 2560), ("long", 1, 4096, 2560)):
+        a = torch.sigmoid(_rand(torch, gen, (B, S, r), torch.float32))
+        b = _rand(torch, gen, (B, S, r), torch.float32)
+        bound, by = _bound(2 * B * S * r, 4 * (3 * B * S * r + B * r),
+                           PEAK_F32_FLOPS)
+        def kern():
+            return ops.rglru_scan(a, b)
+        rows[("rglru_scan", label)] = dict(
+            shape=f"B={B} S={S} r={r} float32",
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
+            plain_ms=cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b),
+                             iters=3, warmup=1),
+            library_ms=None, bound_ms=bound, bound_by=by)
     for (name, label), r in rows.items():
-        log(f"times {name} [{label}] {r['shape']}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, library (sdpa) "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.1%} "
-            f"of bound")
+        lib = ("none" if r["library_ms"] is None
+               else f"(sdpa) {r['library_ms']:.4f} ms")
+        log(f"times {name} [{label}] {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+            f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.1%} of "
+            f"bound ({r['bound_ms'] / r['device_ms']:.1%} on device time)")
     return rows
 
 
@@ -619,47 +880,72 @@ def main(argv=None) -> int:
 
     smi = phase_env(torch)
     results: dict = {}
+    phase_s: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
     if "build" in phases:
-        results["build_s"] = phase_build(ops)
+        results["build_s"] = timed("build", phase_build, ops)
     if "parity" in phases:
-        results["errs"] = phase_parity(torch, ops, ref)
-    tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
-    engines: list = []
-    try:
-        if "main" in phases:
-            results["main"] = phase_main(torch, np, ops, tmp_root, engines)
-    finally:
-        for eng in engines:
-            eng.close()
-        shutil.rmtree(tmp_root, ignore_errors=True)
+        results["errs"] = timed("parity", phase_parity, torch, ops, ref)
+    # each served path closes its engines and drops its weights on the way
+    # out, so the next one starts with the card's memory free
+    for name, fn in (("main", phase_main), ("rgemma", phase_rgemma)):
+        if name not in phases:
+            continue
+        tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
+        engines: list = []
+        try:
+            results[name] = timed(name, fn, torch, np, ops, tmp_root, engines)
+        finally:
+            for eng in engines:
+                eng.close()
+            engines.clear()
+            shutil.rmtree(tmp_root, ignore_errors=True)
+            torch.cuda.empty_cache()
     if "times" in phases:
-        results["times"] = phase_times(torch, ops, ref)
+        results["times"] = timed("times", phase_times, torch, ops, ref)
     if not set(PHASES) <= set(phases):
         log(f"chip_smoke: ran phases {phases} only")
         return 0
 
-    main_res = results["main"]
-    log(f"e2e: cold invoke {main_res['cold_ms']:.3f} ms, freshened invoke "
-        f"{main_res['freshened_ms']:.3f} ms, warm invoke "
-        f"{main_res['warm_ms']:.3f} ms, decode step (per token, batch 4) "
-        f"{main_res['decode_step_ms']:.3f} ms, decode device idle share "
-        f"under the profiler "
-        f"{main_res['profile'].get('decode_idle_share', 'not measured')}")
+    for key, tag in (("main", "qwen2-0.5b"), ("rgemma", "recurrentgemma-2b")):
+        r = results[key]
+        log(f"e2e {tag}: cold invoke {r['cold_ms']:.3f} ms, freshened invoke "
+            f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
+            f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
+            f"decode device idle share under the profiler "
+            f"{r['profile'].get('decode_idle_share', 'not measured')}")
+    log("phase seconds " + json.dumps({k: round(v, 1)
+                                       for k, v in phase_s.items()}))
+    # `launches` is this slice's main path, the recurrentgemma run (it
+    # launches all three kernels); each path's own counts are beside it
+    paths = {"qwen2-0.5b": results["main"]["launches"],
+             "recurrentgemma-2b": results["rgemma"]["launches"]}
+    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     records, short = [], []
     for name, meta in KERNEL_META.items():
         t_main = results["times"][(name, "main")]
-        t_long = results["times"][(name, "long")]
         errs = results["errs"][name]
         rec = dict(name=name, route="cuda", **meta,
-                   launches=main_res["launches"][name],
-                   max_abs_err=max(errs.values()),
+                   launches=paths["recurrentgemma-2b"][name],
+                   launches_by_path={p: c[name] for p, c in paths.items()},
+                   max_abs_err=max(e for e in errs.values() if e is not None),
                    max_err_f32=errs["float32"], max_err_bf16=errs["bfloat16"],
-                   ms=t_main["ms"], plain_ms=t_main["plain_ms"],
+                   ms=t_main["ms"], device_ms=t_main["device_ms"],
+                   plain_ms=t_main["plain_ms"],
                    bound_ms=t_main["bound_ms"], bound_by=t_main["bound_by"],
-                   library_ms=t_main["library_ms"],
-                   long={k: t_long[k] for k in ("shape", "ms", "plain_ms",
-                                                 "library_ms", "bound_ms",
-                                                 "bound_by")})
+                   library_ms=t_main["library_ms"], shape=t_main["shape"])
+        for label in ("long", "rgemma"):
+            if (name, label) in results["times"]:
+                rec[label] = {k: results["times"][(name, label)][k]
+                              for k in keys}
         records.append(rec)
         short.append({k: rec[k] for k in (
             "name", "launches", "max_err_f32", "max_err_bf16", "ms",

@@ -38,13 +38,15 @@ import torch
 from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru_mod
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # library name -> host module that declares and launches its entry point
-MODULES = {"flash_attention": _flash_mod, "decode_attention": _decode_mod}
+MODULES = {"flash_attention": _flash_mod, "decode_attention": _decode_mod,
+           "rglru_scan": _rglru_mod}
 
 
 def _nvcc() -> str:
@@ -210,9 +212,20 @@ class DecodeAttentionOp(KernelOp):
         return out
 
 
+class RGLRUScanOp(KernelOp):
+    def __call__(self, a, b, h0: Optional[torch.Tensor] = None):
+        tensors = (a, b) if h0 is None else (a, b, h0)
+        if not _on_cuda(*tensors) or reference_forced():
+            return ref.rglru_scan_ref(a, b, h0)
+        out = _rglru_mod.launch(self.library.get(self.name), a, b, h0)
+        self._counted()
+        return out
+
+
 flash_attention = FlashAttentionOp("flash_attention", LIBRARY)
 decode_attention = DecodeAttentionOp("decode_attention", LIBRARY)
-KERNELS = (flash_attention, decode_attention)
+rglru_scan = RGLRUScanOp("rglru_scan", LIBRARY)
+KERNELS = (flash_attention, decode_attention, rglru_scan)
 
 
 def reset_launches() -> None:

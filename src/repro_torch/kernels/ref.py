@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the two attention kernels.
+"""Plain PyTorch versions of the port's three kernels.
 
-They compute the functions of the reference's jnp oracles —
-``repro.models.layers.flash_attention`` and ``decode_attention`` — on any
-device, in float32, with the oracles' masking arithmetic: scores of
-masked pairs become ``NEG_INF`` (a large finite number) before the
-softmax.  ``kernels/ops.py`` sends CPU tensors here; ``chip_smoke.py``
-holds each CUDA kernel against these on the card.
+The two attention versions compute the functions of the reference's jnp
+oracles — ``repro.models.layers.flash_attention`` and
+``decode_attention`` — on any device, in float32, with the oracles'
+masking arithmetic: scores of masked pairs become ``NEG_INF`` (a large
+finite number) before the softmax.  ``rglru_scan_ref`` is the literal
+recurrence of ``repro.kernels.ref.ref_rglru_scan``.  ``kernels/ops.py``
+sends CPU tensors here; ``chip_smoke.py`` holds each CUDA kernel against
+these on the card.
 """
 from __future__ import annotations
 
@@ -95,3 +97,19 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     return out.reshape(B, 1, Hq, dv).to(q.dtype)
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """The literal recurrence ``h_t = a_t * h_{t-1} + b_t`` in float32.
+
+    a, b: (B, S, r); h0: (B, r) or None (zeros).  Returns
+    (y (B, S, r) float32, h_T (B, r) float32); h_T is h0 when S == 0."""
+    a, b = a.float(), b.float()
+    B, S, r = a.shape
+    h = (torch.zeros((B, r), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    y = torch.empty((B, S, r), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        y[:, t] = h
+    return y, h

@@ -4,10 +4,16 @@ freshen platform and drive synthetic load through a chain.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --full --seq 128 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --no-freshen
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
 
 Without ``--full`` each stage serves the reduced config (d_model 128,
 vocab 256) as the reference launcher does; ``--full`` serves the
-unreduced config.  Weights are random, drawn from ``--seed``.
+unreduced config.  Weights are random, drawn from ``--seed``.  The
+ported architectures are those whose block kinds the port has:
+``qwen2-0.5b`` (the default), ``recurrentgemma-2b`` (RG-LRU and local
+attention; 2.17 B parameters, 4.39 GB in bf16 per stage at ``--full``)
+and ``gemma2-27b`` (held against the reference at reduced size only);
+any other ``--arch`` raises, naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 # fabriclint: allow-file[clock] -- launch-time measurement harness:

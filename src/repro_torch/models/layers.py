@@ -40,6 +40,13 @@ class ParamFactory:
                         dtype=torch.float32)
         return (w * scale).to(dtype)
 
+    def uniform(self, shape, dtype: torch.dtype, lo: float, hi: float):
+        if self.gen is None:
+            return TensorSpec(tuple(shape), dtype)
+        u = torch.rand(shape, generator=self.gen, device=self.gen.device,
+                       dtype=torch.float32)
+        return (lo + (hi - lo) * u).to(dtype)
+
     def full(self, shape, dtype: torch.dtype, value: float):
         if self.gen is None:
             return TensorSpec(tuple(shape), dtype)

@@ -22,6 +22,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (ParamFactory, dense_init,
                                       init_rmsnorm, rmsnorm_apply)
+from repro_torch.specs import TensorSpec, zeros_like_specs
 
 
 def _softcap(x, cap):
@@ -95,21 +96,28 @@ class Model:
         return x, torch.tensor(aux, dtype=torch.float32, device=x.device)
 
     # ------------------------------------------------------------------
+    def cache_specs(self, batch: int, max_len: int) -> tuple:
+        """``TensorSpec`` tree of :meth:`init_cache`'s leaves: each leaf
+        has its own type, as in the reference (an RG-LRU ``h`` is float32
+        in a bf16 model)."""
+        return tuple(
+            tuple({n: TensorSpec((repeats,) + s.shape, s.dtype)
+                   for n, s in transformer.block_cache_specs(
+                       kind, self.cfg, batch, max_len).items()}
+                  for kind in pattern)
+            for pattern, repeats in self.cfg.segments)
+
     def cache_shapes(self, batch: int, max_len: int) -> tuple:
         """Shapes of :meth:`init_cache`'s leaves, without allocating."""
-        return tuple(
-            tuple({n: (repeats,) + s for n, s in transformer.block_cache_shapes(
-                kind, self.cfg, batch, max_len).items()} for kind in pattern)
-            for pattern, repeats in self.cfg.segments)
+        return tree_map(lambda s: s.shape, self.cache_specs(batch, max_len))
 
     def init_cache(self, batch: int, max_len: int) -> tuple:
         """Zeroed decode cache: tuple over segments of tuple over pattern
-        positions of {"k","v"} stacked as (repeats, B, L, Hkv, hd)."""
-        dtype = getattr(torch, self.cfg.dtype)
-        return tuple(
-            tuple({n: torch.zeros(s, dtype=dtype, device=self.device)
-                   for n, s in blk.items()} for blk in seg)
-            for seg in self.cache_shapes(batch, max_len))
+        positions of per-block dicts stacked as (repeats, ...): {"k","v"}
+        of (repeats, B, L, Hkv, hd) for attention, {"h","conv"} for
+        RG-LRU."""
+        return zeros_like_specs(self.cache_specs(batch, max_len),
+                                self.device)
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 cache=None):

@@ -3,27 +3,32 @@ and seeding, and the segment loop (``repro/models/transformer.py``).
 
 Segment params stay stacked as ``(repeats, ...)`` leaves, matching the
 checkpoint keys; the reference's ``lax.scan`` over repeats becomes a
-Python loop over views of those stacks.  This slice ports the dense
-``attn`` block; the other kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Python loop over views of those stacks.  This slice ports the attention
+blocks (``attn``, and ``attn_local`` with its sliding window and ring
+cache) and the RG-LRU block (``rglru``); the other kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Decode caches are preallocated buffers written in place: attention
+writes its token's K/V into its slot, and the RG-LRU block's new
+``h``/``conv`` state is copied into its buffers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.checkpoint.io import tree_map
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru
 from repro_torch.models.layers import (ParamFactory, init_rmsnorm,
                                       rmsnorm_apply)
-from repro_torch.specs import TensorSpec
+from repro_torch.specs import TensorSpec, zeros_like_specs
 
+_ATTN = ("attn", "attn_local")
+PORTED = _ATTN + ("rglru",)
 # block kind -> the ROADMAP.md module item that ports it
 _PENDING = {
-    "attn_local": "ROADMAP.md module item 1 (gemma2 attn_local and softcaps)",
     "attn_moe": "ROADMAP.md module item 2 (MoE)",
     "mla": "ROADMAP.md module item 3 (MLA)",
     "mla_moe": "ROADMAP.md module item 3 (MLA)",
-    "rglru": "ROADMAP.md module item 4 (RG-LRU with kernel K3)",
     "mlstm": "ROADMAP.md module item 5 (xLSTM)",
     "slstm": "ROADMAP.md module item 5 (xLSTM)",
 }
@@ -33,7 +38,7 @@ def require_ported(kind: str) -> None:
     if kind in _PENDING:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: {_PENDING[kind]}")
-    if kind != "attn":
+    if kind not in PORTED:
         raise ValueError(kind)
 
 
@@ -52,7 +57,10 @@ def init_block(make: ParamFactory, kind: str, cfg) -> dict:
     p = {"norm1": init_rmsnorm(make, cfg.d_model)}
     if cfg.use_post_norm:
         p["post_norm1"] = init_rmsnorm(make, cfg.d_model)
-    p["mixer"] = layers.init_attention(make, cfg)
+    if kind in _ATTN:
+        p["mixer"] = layers.init_attention(make, cfg)
+    else:
+        p["mixer"] = rglru.init_rglru_block(make, cfg)
     if _has_ffn(kind, cfg):
         p["norm2"] = init_rmsnorm(make, cfg.d_model)
         if cfg.use_post_norm:
@@ -63,17 +71,26 @@ def init_block(make: ParamFactory, kind: str, cfg) -> dict:
 
 def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     """Returns (x, new_cache_or_None, aux).  In decode, ``cache`` is
-    updated in place and returned.  ``aux`` (the MoE load-balance loss in
-    the reference) is 0.0 for every ported kind."""
+    updated in place and returned.  In prefill the third item is what
+    seeds a decode cache: (k, v) for attention, {"h", "conv"} for
+    RG-LRU.  ``aux`` (the MoE load-balance loss in the reference) is 0.0
+    for every ported kind."""
     require_ported(kind)
     aux = 0.0
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if decode:
+    if kind == "rglru":
+        out, new_cache = rglru.rglru_block_apply(
+            p["mixer"], h, cfg, cache=cache if decode else None)
+        if decode:                 # in place: the state lives in the buffers
+            for name, val in new_cache.items():
+                cache[name].copy_(val)
+            new_cache = cache
+    elif decode:
         out, new_cache = layers.attention_decode(
-            p["mixer"], h, cfg, cache, pos, local=False)
+            p["mixer"], h, cfg, cache, pos, local=kind == "attn_local")
     else:
         out, new_cache = layers.attention_prefill(
-            p["mixer"], h, cfg, local=False)     # (k, v) for cache seeding
+            p["mixer"], h, cfg, local=kind == "attn_local")
     if cfg.use_post_norm:
         out = rmsnorm_apply(p["post_norm1"], out, cfg.norm_eps)
     x = x + out
@@ -88,29 +105,33 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
 
 # ----------------------------------------------------------------------
 # caches
-def block_cache_shapes(kind, cfg, batch: int, max_len: int) -> dict:
-    hd = cfg.resolved_head_dim
-    if kind in ("attn", "attn_moe"):
-        L = max_len
-    elif kind == "attn_local":
-        L = min(max_len, cfg.window_size)
-    else:
-        require_ported(kind)
-    shape = (batch, L, cfg.n_kv_heads, hd)
-    return {"k": shape, "v": shape}
+def block_cache_specs(kind, cfg, batch: int, max_len: int) -> dict:
+    """Shape and type of each leaf of one block's decode cache, as the
+    reference's ``init_block_cache`` makes it: K/V in the model's type,
+    the RG-LRU state ``h`` in float32 and ``conv`` in the model's type."""
+    require_ported(kind)
+    if kind == "rglru":
+        return rglru.rglru_cache_specs(cfg, batch)
+    L = max_len if kind == "attn" else min(max_len, cfg.window_size)
+    spec = TensorSpec((batch, L, cfg.n_kv_heads, cfg.resolved_head_dim),
+                      getattr(torch, cfg.dtype))
+    return {"k": spec, "v": spec}
 
 
 def init_block_cache(kind, cfg, batch: int, max_len: int, device) -> dict:
-    dtype = getattr(torch, cfg.dtype)
-    return {name: torch.zeros(shape, dtype=dtype, device=device)
-            for name, shape in block_cache_shapes(kind, cfg, batch,
-                                                  max_len).items()}
+    return zeros_like_specs(block_cache_specs(kind, cfg, batch, max_len),
+                            device)
 
 
 def seed_block_cache(kind, cfg, cache, prefill_out, seq_len: int) -> dict:
-    """Place prefill K/V into a decode cache, in place; returns it."""
-    if kind not in ("attn", "attn_moe", "attn_local"):
-        require_ported(kind)
+    """Place prefill products into a decode cache, in place; returns it.
+    Attention K/V fill slots (a ring buffer wraps); RG-LRU states are
+    copied as they are."""
+    require_ported(kind)
+    if kind == "rglru":
+        for name, val in prefill_out.items():
+            cache[name].copy_(val)
+        return cache
     for name, val in zip(("k", "v"), prefill_out):
         buf = cache[name]
         L = buf.shape[1]
@@ -154,8 +175,9 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
     """Run ``repeats`` stacked super-blocks.  Returns (x, seg_caches, aux).
 
     With ``seg_caches`` (stacked ``(repeats, ...)`` buffers) the caches
-    are written in place: in decode each layer writes its token's K/V;
-    in prefill each layer's K/V seed its slice as soon as it is made."""
+    are written in place: in decode each layer writes its token's K/V or
+    its new recurrent state; in prefill each layer's K/V or final state
+    seed its slice as soon as they are made."""
     aux = 0.0
     for r in range(repeats):
         params_r = layer_params(seg_params, r)
@@ -167,8 +189,8 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
                 x, _, a = block_apply(kind, cfg, params_r[j], x,
                                       cache=cache_rj, pos=pos, decode=True)
             else:
-                x, kv, a = block_apply(kind, cfg, params_r[j], x)
+                x, seed, a = block_apply(kind, cfg, params_r[j], x)
                 if cache_rj is not None:
-                    seed_block_cache(kind, cfg, cache_rj, kv, x.shape[1])
+                    seed_block_cache(kind, cfg, cache_rj, seed, x.shape[1])
             aux = aux + a
     return x, seg_caches, aux

@@ -162,15 +162,9 @@ class ModelEndpoint:
             return model.decode_step(params, cache, token, pos)
         return prefill, decode
 
-    def _cache_spec(self, max_len: int):
-        return tuple(
-            tuple({n: TensorSpec(s, getattr(torch, self.cfg.dtype))
-                   for n, s in blk.items()} for blk in seg)
-            for seg in self.model.cache_shapes(self.batch_size, max_len))
-
     def _compile_decode(self, max_len: int):
         params_spec = self._params_spec()
-        cache_spec = self._cache_spec(max_len)
+        cache_spec = self.model.cache_specs(self.batch_size, max_len)
         prefill, decode = self._decode_fns(max_len)
         c_pre, _ = self.executor.compile(
             f"{self.name}/prefill{max_len}", prefill,

@@ -1,5 +1,7 @@
-"""The port's dense model (``repro_torch.models``) held against the JAX
-reference on the reduced qwen2-0.5b in float32: the weights are made by
+"""The port's attention models (``repro_torch.models``) held against the
+JAX reference in float32 on the reduced qwen2-0.5b (``attn``) and the
+reduced gemma2-27b (``attn_local`` with its 64-slot ring, softcaps,
+post-norms, ``query_scale``, ``scale_embedding``): the weights are made by
 the JAX ``init``, written with ``repro.checkpoint.save_pytree`` and read
 by the port's loader, so both run the same numbers.  XLA:CPU and torch
 sum in different orders, hence 1e-4 rather than exact equality; greedy
@@ -156,11 +158,14 @@ def test_seed_block_cache_ring_matches_reference(seq_len):
 
 
 def test_unported_block_kinds_name_their_roadmap_item():
-    for arch, item in (("gemma2-27b", "gemma2"), ("granite-moe-1b-a400m", "MoE"),
-                       ("deepseek-v2-lite-16b", "MLA"),
-                       ("recurrentgemma-2b", "RG-LRU"), ("xlstm-350m", "xLSTM")):
+    for arch, item in (("granite-moe-1b-a400m", "MoE"),
+                       ("deepseek-v2-lite-16b", "MLA"), ("xlstm-350m", "xLSTM")):
         with pytest.raises(NotImplementedError, match=item):
             make_model(port_get_config(arch).reduced(), device="cpu")
+    # the attn_local and rglru kinds are ported: these build on the CPU
+    for arch in ("gemma2-27b", "recurrentgemma-2b"):
+        m = make_model(port_get_config(arch).reduced(), device="cpu")
+        assert m.init(torch.Generator().manual_seed(0))["seg0"]
 
 
 def test_model_defaults_to_cuda_and_refuses_cpu_fallback():
@@ -168,3 +173,89 @@ def test_model_defaults_to_cuda_and_refuses_cpu_fallback():
         pytest.skip("this host has a GPU: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_model(port_get_config("qwen2-0.5b").reduced())
+
+
+# ---------------------------------------------------------------------------
+# gemma2: attn_local with its 64-slot ring, softcaps, post-norms,
+# query_scale and scale_embedding, on gemma2-27b.reduced() in float32
+G_B, G_MAX_LEN, G_STEPS = 2, 136, 8
+
+
+@pytest.fixture(scope="module")
+def gemma2(tmp_path_factory):
+    cfg = dataclasses.replace(get_config("gemma2-27b").reduced(),
+                              dtype="float32")
+    jm = jax_make_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(1))
+    path = str(tmp_path_factory.mktemp("bridge") / "gemma2.npz")
+    save_pytree(path, jp)
+    pcfg = dataclasses.replace(port_get_config("gemma2-27b").reduced(),
+                               dtype="float32")
+    tm = make_model(pcfg, device="cpu")
+    tp = load_pytree(path, device="cpu")
+    jfns = dict(prefill=jax.jit(jm.prefill, static_argnames=("max_len",)),
+                decode=jax.jit(jm.decode_step))
+    return jm, jp, tm, tp, jfns
+
+
+def _g_tokens(S):
+    return np.random.default_rng(S).integers(0, 512, (G_B, S)).astype(
+        np.int32)
+
+
+def test_gemma2_forward_hidden_and_logits(gemma2):
+    jm, jp, tm, tp, _ = gemma2
+    cfg = tm.cfg
+    assert (cfg.attn_softcap, cfg.final_softcap, cfg.use_post_norm,
+            cfg.scale_embedding, cfg.window_size) == (50.0, 30.0, True,
+                                                       True, 64)
+    toks = _g_tokens(128)
+    jx, _ = jm.forward(jp, jnp.asarray(toks))
+    with torch.no_grad():
+        tx, _ = tm.forward(tp, torch.from_numpy(toks))
+        tl = tm._logits(tp, tx)
+    np.testing.assert_allclose(_np(tx), np.asarray(jx), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(_np(tl), np.asarray(jm._logits(jp, jx)),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("S", [60, 128])
+def test_gemma2_prefill_decode_across_the_ring_wrap(gemma2, S):
+    """Prompt 60 decodes positions 60..67: before, at and past the
+    64-slot ring's wrap; prompt 128 seeds the ring wrapped.  Prefill
+    logits and caches, then every decode step's logits, agree; greedy
+    tokens are identical."""
+    jm, jp, tm, tp, jfns = gemma2
+    toks = _g_tokens(S)
+    jl, jc = jfns["prefill"](jp, jnp.asarray(toks), max_len=G_MAX_LEN)
+    with torch.no_grad():
+        tl, tc = tm.prefill(tp, torch.from_numpy(toks), max_len=G_MAX_LEN)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=ATOL, rtol=0)
+    assert tuple(tc[0][0]["k"].shape)[2] == 64           # the local ring
+    assert tuple(tc[0][1]["k"].shape)[2] == G_MAX_LEN    # the global cache
+
+    def caches_close(msg):
+        for j in range(2):
+            for name in ("k", "v"):
+                np.testing.assert_allclose(
+                    _np(tc[0][j][name]), np.asarray(jc[0][j][name]),
+                    atol=ATOL, rtol=0, err_msg=f"{msg} [{j}] {name}")
+
+    caches_close("prefill")
+    jtok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+    ttok = torch.argmax(tl[:, -1:], dim=-1).to(torch.int32)
+    jpos = jnp.full((G_B,), S, jnp.int32)
+    tpos = torch.full((G_B,), S, dtype=torch.int32)
+    for step in range(G_STEPS):
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok),
+                                      err_msg=f"step {step}")
+        jl, jc = jfns["decode"](jp, jc, jtok, jpos)
+        with torch.no_grad():
+            tl, tc = tm.decode_step(tp, tc, ttok, tpos)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=ATOL,
+                                   rtol=0, err_msg=f"step {step}")
+        jtok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        ttok = torch.argmax(tl[:, -1:], dim=-1).to(torch.int32)
+        jpos, tpos = jpos + 1, tpos + 1
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    caches_close("after decode")
