@@ -8,12 +8,17 @@ Phases, each of which raises on failure (exit code 1):
 
 1. environment: torch/CUDA versions and the card's name and power limit;
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc into the ignored ``build/kernels/`` and time the build;
+   with nvcc into the ignored ``build/kernels/`` and time the build; echo
+   each kernel's registers and spills (the bf16 tensor-core
+   instantiations of K1 must not spill) and K1's shared memory per block;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the cases of ``tests/test_kernels.py``, both served models' shapes and
-   rows that see no key: the attention kernels K1/K2 in float32
-   (atol/rtol 2e-5, TF32 off) and bfloat16 (3e-2), the RG-LRU scan K3 in
-   float32 (1e-6), also on a ragged width and strided views;
+   the cases of ``tests/test_kernels.py``, both served models' shapes,
+   rows that see no key, and the edges of the new designs (K1's bf16
+   head-dim tiles up to dh 192 / dv 128 and 256, ragged Sq, q_offset; K2's
+   splits wholly past pos and the ring across split edges): the
+   attention kernels K1/K2 in float32 (atol/rtol 2e-5, TF32 off) and
+   bfloat16 (3e-2), the RG-LRU scan K3 in float32 (1e-6), also on a
+   ragged width and strided views;
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
@@ -31,7 +36,9 @@ Phases, each of which raises on failure (exit code 1):
    against ``force_reference``, teacher-forced within 1e-3 with
    identical tokens, at prompt 128 and past the 2048-slot ring's wrap;
 6. times: each kernel, its plain version, the PyTorch library call and
-   the bound, at each served model's shapes and a long one.
+   the bound, at each served model's shapes and a long one; kernel and
+   library each timed by CUDA events and on the device alone, and
+   compared device time to device time.
 
 It prints the kernel records on a ``kernels `` line and as one JSON
 object, then the card's name and power limit, and ends with
@@ -44,6 +51,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -107,10 +115,39 @@ def phase_build(ops):
     wall = time.perf_counter() - t0
     log(f"build: {wall:.2f} s wall, nvcc built {ops.LIBRARY.built or 'none'} "
         f"into {ops.LIBRARY.build_dir.relative_to(ROOT)}")
+    name, spills = "?", {}
     for line in ops.LIBRARY.build_log.splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif line.startswith("=="):
             log(f"  {line.strip()}")
+        elif "Used" in line or "spill" in line:
+            log(f"  {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+    bf16 = {k: v for k, v in spills.items() if k.startswith("flash_wgmma")}
+    check(len(bf16) > 0 and not any(bf16.values()),
+          f"the bf16 flash instantiations spill: {bf16}")
+    from repro_torch.kernels import flash_attention as fa
+    smem = getattr(ops.LIBRARY.get("flash_attention"), fa.SMEM_BYTES)
+    for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        log(f"  K1 bf16 up to dh {dh}, dv {dv}: {smem(dh, dv)} bytes of "
+            f"dynamic shared memory per block")
     return wall
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_wgmma_kernel<64,64,64,3>`` from a mangled kernel name."""
+    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(\w*)", mangled)
+    if not m:
+        return mangled[:60]
+    args = m.group(2)[1:] if m.group(2).startswith("I") else ""
+    kind = ["bf16"] if "bfloat16" in args else ["f32"] if args[:1] == "f" else []
+    parts = kind + re.findall(r"Li(\d+)E", args)
+    return m.group(1) + (f"<{','.join(parts)}>" if parts else "")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +195,13 @@ def phase_parity(torch, ops, ref):
         # recurrentgemma's attn_local: MQA, 10 query heads, dh 256
         (4, 128, 128, 10, 1, 256, 256, True, 2048, None, 0),   # its main path
         (1, 2100, 2100, 10, 1, 256, 256, True, 2048, None, 0), # window masks
+        # the bf16 tensor-core body's other tiles and edges
+        (1, 200, 200, 4, 1, 192, 128, True, None, None, 0),    # MLA prefill dims
+        (2, 333, 333, 16, 16, 192, 128, True, None, None, 0),  # ragged, MHA
+        (1, 100, 100, 10, 1, 256, 256, True, 2048, None, 0),   # Sq not a tile
+        (2, 70, 300, 4, 2, 128, 128, True, 200, None, 230),    # q_offset, window
+        (1, 128, 128, 2, 1, 64, 128, True, None, None, 0),     # dv > dh
+        (1, 1000, 1000, 14, 2, 64, 64, True, None, None, 0),   # many tiles
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -195,6 +239,11 @@ def phase_parity(torch, ops, ref):
         # recurrentgemma: G = 10 (a ragged last warp), dh 256, window 2048
         (4, 256, 10, 1, 256, 2048, None, [128, 131, 140, 143]),  # linear slots
         (1, 2048, 10, 1, 256, 2048, None, [2047, 2048, 2100, 2107]),  # ring
+        # split-KV: one (row, head) pair, splits wholly past pos; the ring
+        # across split edges at batch 2; the long shape at mixed positions
+        (1, 4096, 7, 1, 64, None, None, [0, 63, 64, 4095]),
+        (2, 2048, 10, 1, 256, 2048, None, [2047, 2048, 2107]),
+        (8, 4096, 14, 2, 64, None, None, [4095, 17, 2048, 4000, 1, 0, 3000, 255]),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -205,7 +254,7 @@ def phase_parity(torch, ops, ref):
             if positions is None:
                 pos_sets = [torch.randint(1, S, (B,), generator=gen,
                                           device="cuda", dtype=torch.int32)]
-            elif window == S:                   # ring: each p for every row
+            elif window == S or len(positions) != B:   # each p, every row
                 pos_sets = [torch.full((B,), p, dtype=torch.int32,
                                        device="cuda") for p in positions]
             else:
@@ -719,6 +768,12 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
            res["decode_idle_share"]))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile decode top: {us / steps:9.1f} us/step  {name[:90]}")
+    # the port's own kernels (K2's two passes), whatever their rank
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if re.search(r"(decode_split|decode_merge|flash_\w+|rglru_scan)_kernel",
+                     name):
+            log(f"profile decode port kernel: {us / steps:9.1f} us/step "
+                f"({us / busy_dec:.1%} of device busy)  {name[:70]}")
     table = prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=15)
     (out_dir / "profile_table.txt").write_text(table)
@@ -781,11 +836,13 @@ def phase_times(torch, ops, ref):
         return F.scaled_dot_product_attention(*a, **kw, enable_gqa=True)
 
     # (label, B, S, Hq, Hkv, dh, window): qwen2's main and long shapes,
-    # recurrentgemma's attn_local at its main path's shape
+    # recurrentgemma's attn_local at its main path's shape and at its
+    # longest prefill that the window still covers
     for label, B, S, Hq, Hkv, dh, window in (
             ("main", 4, 128, 14, 2, 64, None),
             ("long", 1, 4096, 14, 2, 64, None),
-            ("rgemma", 4, 128, 10, 1, 256, 2048)):
+            ("rgemma", 4, 128, 10, 1, 256, 2048),
+            ("rgemma_long", 1, 2048, 10, 1, 256, 2048)):
         q = _rand(torch, gen, (B, S, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         v = _rand(torch, gen, (B, S, Hkv, dh), bf16)
@@ -799,13 +856,16 @@ def phase_times(torch, ops, ref):
               "the sdpa yardstick assumes the window covers the sequence")
         def kern():
             return ops.flash_attention(q, k, v, window=window)
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=True)
         rows[("flash_attention", label)] = dict(
             shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} bf16 causal"
                   + (f" window={window}" if window else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
                 q, k, v, window=window), iters=5),
-            library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True)),
+            library_ms=cuda_ms(torch, lib),
+            library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
     for label, B, S, p, Hq, Hkv, dh, window in (
             ("main", 4, 256, 143, 14, 2, 64, None),
@@ -823,14 +883,16 @@ def phase_times(torch, ops, ref):
         bound, by = _bound(flops, nbytes)
         def kern():
             return ops.decode_attention(q, k, v, pos, window=window)
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=mask)
         rows[("decode_attention", label)] = dict(
             shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh} bf16"
                   + (f" window={window}" if window else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.decode_attention_ref(
                 q, k, v, pos, window=window)),
-            library_ms=cuda_ms(torch, lambda: sdpa(qt, kt, vt,
-                                                    attn_mask=mask)),
+            library_ms=cuda_ms(torch, lib),
+            library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
     # K3 as the main path calls it (no h0): a, b read, y and h_T written,
     # a multiply and an add per element in float32 on the CUDA cores
@@ -846,10 +908,14 @@ def phase_times(torch, ops, ref):
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b),
                              iters=3, warmup=1),
-            library_ms=None, bound_ms=bound, bound_by=by)
+            library_ms=None, library_device_ms=None, bound_ms=bound,
+            bound_by=by)
     for (name, label), r in rows.items():
+        # the factor compares device time with device time
         lib = ("none" if r["library_ms"] is None
-               else f"(sdpa) {r['library_ms']:.4f} ms")
+               else f"(sdpa) {r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f} ms; kernel/sdpa on the "
+                    f"device {r['device_ms'] / r['library_device_ms']:.2f}x)")
         log(f"times {name} [{label}] {r['shape']}: kernel {r['ms']:.4f} ms "
             f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
             f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
@@ -927,13 +993,15 @@ def main(argv=None) -> int:
     # launches all three kernels); each path's own counts are beside it
     paths = {"qwen2-0.5b": results["main"]["launches"],
              "recurrentgemma-2b": results["rgemma"]["launches"]}
-    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by")
     records, short = [], []
     for name, meta in KERNEL_META.items():
         t_main = results["times"][(name, "main")]
         errs = results["errs"][name]
-        rec = dict(name=name, route="cuda", **meta,
+        mod = ops.MODULES[name]
+        rec = dict(name=name, route="cuda", **meta, design=mod.DESIGN,
+                   device_kernels_per_call=mod.DEVICE_KERNELS_PER_CALL,
                    launches=paths["recurrentgemma-2b"][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
                    max_abs_err=max(e for e in errs.values() if e is not None),
@@ -941,8 +1009,10 @@ def main(argv=None) -> int:
                    ms=t_main["ms"], device_ms=t_main["device_ms"],
                    plain_ms=t_main["plain_ms"],
                    bound_ms=t_main["bound_ms"], bound_by=t_main["bound_by"],
-                   library_ms=t_main["library_ms"], shape=t_main["shape"])
-        for label in ("long", "rgemma"):
+                   library_ms=t_main["library_ms"],
+                   library_device_ms=t_main["library_device_ms"],
+                   shape=t_main["shape"])
+        for label in ("long", "rgemma", "rgemma_long"):
             if (name, label) in results["times"]:
                 rec[label] = {k: results["times"][(name, label)][k]
                               for k in keys}

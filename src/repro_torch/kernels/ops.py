@@ -113,12 +113,17 @@ class KernelLibrary:
                 if proc.returncode:
                     failed.append(n)
                 else:
+                    os.replace(log.name, out_dir / f"{n}.log")
                     os.replace(tmp, paths[n])
-            self.build_log = "\n".join(logs)
             if failed:
                 raise RuntimeError(f"nvcc failed for {failed}:\n"
-                                   f"{self.build_log}")
+                                   + "\n".join(logs))
             self.built = missing
+        # each library's nvcc output (ptxas registers and spills) is kept
+        # beside it, so a process that finds the build has its log too
+        self.build_log = "\n".join(
+            f"== {n}\n" + (out_dir / f"{n}.log").read_text()
+            for n in MODULES if (out_dir / f"{n}.log").exists())
         libs = {}
         for n, mod in MODULES.items():
             lib = ctypes.CDLL(str(paths[n]))

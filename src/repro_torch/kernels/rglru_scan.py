@@ -17,6 +17,8 @@ SOURCE = "rglru_scan.cu"
 ENTRY = "rglru_scan_fwd"
 ERROR_STRING = "rglru_scan_error_string"
 MAX_BATCH = 65535            # the grid's y dimension
+DESIGN = "one thread per (row, channel) walks the sequence, 8 steps of loads in flight"
+DEVICE_KERNELS_PER_CALL = 1
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ARGTYPES = [_P] * 5 + [_I] * 3 + [_L] * 8 + [_P]
