@@ -10,15 +10,18 @@ Phases, each of which raises on failure (exit code 1):
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
    with nvcc into the ignored ``build/kernels/`` and time the build; echo
    each kernel's registers and spills (the bf16 tensor-core
-   instantiations of K1 must not spill) and K1's shared memory per block;
+   instantiations of K1 must not spill), K1's shared memory per block,
+   and K3's plan (tiles, ring stages, shared memory) at its timed shapes;
 3. parity: each kernel against its plain PyTorch version on the card, on
    the cases of ``tests/test_kernels.py``, both served models' shapes,
    rows that see no key, and the edges of the new designs (K1's bf16
    head-dim tiles up to dh 192 / dv 128 and 256, ragged Sq, q_offset; K2's
    splits wholly past pos and the ring across split edges): the
    attention kernels K1/K2 in float32 (atol/rtol 2e-5, TF32 off) and
-   bfloat16 (3e-2), the RG-LRU scan K3 in float32 (1e-6), also on a
-   ragged width and strided views;
+   bfloat16 (3e-2), the RG-LRU scan K3 in float32 bit for bit (max error
+   0, and within 1e-6), also on a ragged width, strided views, r below one
+   tile and S around the plan's box and ring edges, and K3 refusing
+   layouts TMA cannot read;
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
@@ -32,13 +35,16 @@ Phases, each of which raises on failure (exit code 1):
 5. rgemma: full-width recurrentgemma-2b (26 layers, 18 RG-LRU through K3
    and 8 local-attention through K1/K2 with window 2048; bfloat16)
    served the same way, with its own launch-count window and profiler
-   pass; then a float32 copy cut to 5 layers (both segment shapes) held
-   against ``force_reference``, teacher-forced within 1e-3 with
-   identical tokens, at prompt 128 and past the 2048-slot ring's wrap;
+   pass, and one profiled prefill of a single prompt of 4096 tokens (18
+   K3 launches; its device time and K3's share of it); then a float32
+   copy cut to 5 layers (both segment shapes) held against
+   ``force_reference``, teacher-forced within 1e-3 with identical tokens,
+   at prompt 128 and past the 2048-slot ring's wrap;
 6. times: each kernel, its plain version, the PyTorch library call and
-   the bound, at each served model's shapes and a long one; kernel and
-   library each timed by CUDA events and on the device alone, and
-   compared device time to device time.
+   the bound, at each served model's shapes and a long one (K3 also at
+   four prompts of 2048 and at the gate's prompt of 2100, with its
+   achieved GB/s); kernel and library each timed by CUDA events and on
+   the device alone, and compared device time to device time.
 
 It prints the kernel records on a ``kernels `` line and as one JSON
 object, then the card's name and power limit, and ends with
@@ -109,7 +115,7 @@ def phase_env(torch):
 
 # ---------------------------------------------------------------------------
 # phase 2
-def phase_build(ops):
+def phase_build(torch, ops):
     t0 = time.perf_counter()
     ops.LIBRARY.load()
     wall = time.perf_counter() - t0
@@ -136,6 +142,19 @@ def phase_build(ops):
     for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
         log(f"  K1 bf16 up to dh {dh}, dv {dv}: {smem(dh, dv)} bytes of "
             f"dynamic shared memory per block")
+    from repro_torch.kernels import rglru_scan as k3
+    k3_smem = getattr(ops.LIBRARY.get("rglru_scan"), k3.SMEM_BYTES)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, S, r in ((4, 128, 2560), (1, 4096, 2560), (4, 2048, 2560),
+                    (1, 2100, 2560)):
+        plan = k3.plan_scan(B, S, r, n_sm)
+        check(k3_smem(plan.stages) == plan.smem_bytes,
+              f"K3 plan {plan}: the kernel asks for {k3_smem(plan.stages)} "
+              f"bytes of shared memory")
+        log(f"  K3 plan at B {B}, S {S}, r {r}, {n_sm} SMs: {plan.blocks} "
+            f"blocks of {plan.channels} channels, {plan.stages} stages of "
+            f"{plan.steps} steps, {plan.smem_bytes} bytes of dynamic shared "
+            f"memory per block")
     return wall
 
 
@@ -284,45 +303,77 @@ def _fmt(x, spec):
 
 
 def parity_rglru(torch, ops, ref, gen, errs):
-    """K3 against its plain version, float32 only (the scan's type), at
-    atol/rtol 1e-6: the sweep of tests/test_kernels.py with and without
-    h0, a ragged r, strided views, and the main and long shapes."""
+    """K3 against its plain version, float32 only (the scan's type): bit
+    for bit (max error 0) and, as before, within atol/rtol 1e-6.  The
+    sweep of tests/test_kernels.py with and without h0, a ragged r,
+    strided views, the main and long shapes, and the edges of the plan
+    (``rglru_scan.plan_scan``): S around one box and around the ring's
+    depth, the float32 gate's prompt 2100, four long prompts, and r below
+    one tile."""
+    from repro_torch.kernels import rglru_scan as kmod
     tol = 1e-6
     errs["rglru_scan"] = {"float32": 0.0, "bfloat16": None}
-    # (B, S, r, h0, channel-stride view)
-    cases = [(1, 64, 256, True, False), (2, 128, 512, True, False),
-             (3, 200, 384, True, False), (1, 64, 256, False, False),
-             (2, 128, 512, False, False), (3, 200, 384, False, False),
-             (2, 77, 2500, True, False),                # ragged r and S
-             (2, 50, 320, True, True),                  # strided views
-             (4, 128, 2560, False, False),              # main path
-             (1, 4096, 2560, True, False)]              # long
-    for B, S, r, with_h0, strided in cases:
-        width = 2 * r if strided else r
-        a = torch.sigmoid(_rand(torch, gen, (B, S, width),
-                                torch.float32))[..., :r]
-        b = _rand(torch, gen, (B, S, width), torch.float32)[..., :r]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # (B, S, r, h0, layout): "contig", "channels" (a channel-stride view
+    # of a 2r-wide tensor) or "batch" (rows and steps swapped: an (S, B, r)
+    # tensor read through its strides)
+    cases = [(1, 64, 256, True, "contig"), (2, 128, 512, True, "contig"),
+             (3, 200, 384, True, "contig"), (1, 64, 256, False, "contig"),
+             (2, 128, 512, False, "contig"), (3, 200, 384, False, "contig"),
+             (2, 77, 2500, True, "contig"),             # ragged r and S
+             (2, 50, 320, True, "channels"),            # strided views
+             (4, 128, 2560, False, "contig"),           # main path
+             (1, 4096, 2560, True, "contig"),           # long, with h0
+             (1, 2100, 2560, False, "contig"),          # the float32 gate's
+             (4, 2048, 2560, False, "contig"),          # four long prompts
+             (1, 300, 8, True, "contig"),               # r below one tile
+             (2, 1, 64, True, "contig"),                # one step
+             (3, 90, 256, True, "batch")]               # rows through strides
+    for B, r in ((1, 2560), (4, 2560), (2, 100)):       # box and ring edges
+        plan = kmod.plan_scan(B, 1 << 20, r, n_sm)
+        for S in (plan.steps - 1, plan.steps, plan.steps + 1,
+                  plan.stages * plan.steps - 1, plan.stages * plan.steps,
+                  plan.stages * plan.steps + 1):
+            cases.append((B, S, r, S % 2 == 0, "contig"))
+    for B, S, r, with_h0, layout in cases:
+        width = 2 * r if layout == "channels" else r
+        if layout == "batch":
+            a = torch.sigmoid(_rand(torch, gen, (S, B, r),
+                                    torch.float32)).transpose(0, 1)
+            b = _rand(torch, gen, (S, B, r), torch.float32).transpose(0, 1)
+        else:
+            a = torch.sigmoid(_rand(torch, gen, (B, S, width),
+                                    torch.float32))[..., :r]
+            b = _rand(torch, gen, (B, S, width), torch.float32)[..., :r]
         h0 = (_rand(torch, gen, (B, width), torch.float32)[:, :r]
               if with_h0 else None)
         y, hT = ops.rglru_scan(a, b, h0)
         torch.cuda.synchronize()
         wy, wh = ref.rglru_scan_ref(a, b, h0)
+        case = (B, S, r, with_h0, layout)
         for got, want in ((y, wy), (hT, wh)):
             check(bool(torch.isfinite(got).all()), "K3 output is not finite")
             err = (got - want).abs()
             e = float(err.max()) if err.numel() else 0.0
             errs["rglru_scan"]["float32"] = max(errs["rglru_scan"]["float32"], e)
             check(bool((err <= tol + tol * want.abs()).all()),
-                  f"rglru_scan case {(B, S, r, with_h0, strided)}: max abs "
-                  f"err {e}")
-    a = torch.zeros((2, 16, 8), device="cuda")
-    try:
-        ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
-    except ValueError:
-        pass
-    else:
-        raise SmokeFailure("K3 took a non-contiguous channel dimension")
-    return f"{len(cases)} cases, float32"
+                  f"rglru_scan case {case}: max abs err {e}")
+            check(torch.equal(got, want),
+                  f"rglru_scan case {case}: not bit for bit (max abs err {e})")
+    a = torch.zeros((2, 16, 12), device="cuda")
+    flat = torch.zeros(2 * 16 * 12 + 1, device="cuda")
+    for bad, why in ((a.transpose(1, 2), "a non-contiguous channel dimension"),
+                     (a[..., :10], "r % 4 != 0"),
+                     (flat[1:].view(2, 16, 12), "a misaligned base"),
+                     (torch.zeros((2, 16, 10), device="cuda")[..., :8],
+                      "a 40-byte step stride")):
+        try:
+            ops.rglru_scan(bad, bad)
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"K3 took {why}")
+    return f"{len(cases)} cases, float32, bit for bit"
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +704,9 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
         f"(reference path {r_ms:.2f} ms)")
     out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
                                    ROOT / "build" / "profile" / "rgemma")
+    out["long_prefill"] = profile_prefill(
+        torch, np, ops, model, params, cfg, n_rec,
+        ROOT / "build" / "profile" / "rgemma_long")
     del params, model
     torch.cuda.empty_cache()
 
@@ -694,6 +748,66 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
     del params32, model32
     torch.cuda.empty_cache()
     return out
+
+
+def profile_prefill(torch, np, ops, model, params, cfg, n_rec, trace_dir,
+                    S=4096):
+    """One prefill of a single long prompt under torch.profiler: its device
+    time and K3's share of it.  A warm-up prefill runs first; the traced
+    one must launch K3 once per RG-LRU layer."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, S), dtype=np.int32), device="cuda")
+
+    def prefill():
+        with torch.no_grad():
+            logits, _ = model.prefill(params, toks, max_len=S)
+        torch.cuda.synchronize()
+        return logits
+
+    prefill()
+    c0 = _counts(ops)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits = prefill()
+        wall = time.perf_counter() - t0
+    launches = _delta(c0, _counts(ops))
+    check(launches["rglru_scan"] == n_rec,
+          f"the long prefill launched K3 {launches['rglru_scan']} times, "
+          f"not {n_rec}")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (1, 1, cfg.vocab_size),
+          f"long prefill logits {tuple(logits.shape)} not finite or shaped")
+    out_dir = Path(trace_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "prefill_trace.json"))
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        log("profile long prefill: the profiler recorded no device events: "
+            "device time not measured")
+        return {"launches": launches}
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    k3 = [e for e in kern if "rglru_scan" in e.name]
+    check(len(k3) == n_rec, f"the trace holds {len(k3)} K3 kernels, not "
+          f"{n_rec}")
+    k3_ms = sum(e.time_range.elapsed_us() for e in k3) / 1e3
+    res = dict(wall_ms=wall * 1e3, device_ms=busy, device_events=len(kern),
+               k3_ms=k3_ms, k3_events=len(k3), k3_share=k3_ms / busy,
+               launches=launches)
+    log(f"profile long prefill (bf16, batch 1, prompt {S}): wall "
+        f"{res['wall_ms']:.2f} ms, device busy {busy:.3f} ms in {len(kern)} "
+        f"device events; K3 {k3_ms:.4f} ms in {len(k3)} device events "
+        f"({res['k3_share']:.2%} of the prefill's device time); launches "
+        f"{launches}")
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"profile long prefill top: {us / 1e3:8.3f} ms "
+            f"({us / 1e3 / busy:.1%})  {name[:90]}")
+    return res
 
 
 def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
@@ -895,21 +1009,27 @@ def phase_times(torch, ops, ref):
             library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
     # K3 as the main path calls it (no h0): a, b read, y and h_T written,
-    # a multiply and an add per element in float32 on the CUDA cores
-    for label, B, S, r in (("main", 4, 128, 2560), ("long", 1, 4096, 2560)):
+    # a multiply and an add per element in float32 on the CUDA cores; the
+    # main shape, one long prompt, four long prompts and the float32
+    # gate's prompt
+    for label, B, S, r in (("main", 4, 128, 2560), ("long", 1, 4096, 2560),
+                           ("long_b4", 4, 2048, 2560),
+                           ("gate", 1, 2100, 2560)):
         a = torch.sigmoid(_rand(torch, gen, (B, S, r), torch.float32))
         b = _rand(torch, gen, (B, S, r), torch.float32)
-        bound, by = _bound(2 * B * S * r, 4 * (3 * B * S * r + B * r),
-                           PEAK_F32_FLOPS)
+        nbytes = 4 * (3 * B * S * r + B * r)
+        bound, by = _bound(2 * B * S * r, nbytes, PEAK_F32_FLOPS)
         def kern():
             return ops.rglru_scan(a, b)
-        rows[("rglru_scan", label)] = dict(
+        row = dict(
             shape=f"B={B} S={S} r={r} float32",
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b),
                              iters=3, warmup=1),
             library_ms=None, library_device_ms=None, bound_ms=bound,
             bound_by=by)
+        row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
+        rows[("rglru_scan", label)] = row
     for (name, label), r in rows.items():
         # the factor compares device time with device time
         lib = ("none" if r["library_ms"] is None
@@ -920,7 +1040,9 @@ def phase_times(torch, ops, ref):
             f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
             f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}), kernel at {r['bound_ms'] / r['ms']:.1%} of "
-            f"bound ({r['bound_ms'] / r['device_ms']:.1%} on device time)")
+            f"bound ({r['bound_ms'] / r['device_ms']:.1%} on device time)"
+            + (f", {r['device_gb_s']:.1f} GB/s on device time"
+               if "device_gb_s" in r else ""))
     return rows
 
 
@@ -956,7 +1078,7 @@ def main(argv=None) -> int:
         return out
 
     if "build" in phases:
-        results["build_s"] = timed("build", phase_build, ops)
+        results["build_s"] = timed("build", phase_build, torch, ops)
     if "parity" in phases:
         results["errs"] = timed("parity", phase_parity, torch, ops, ref)
     # each served path closes its engines and drops its weights on the way
@@ -1012,10 +1134,13 @@ def main(argv=None) -> int:
                    library_ms=t_main["library_ms"],
                    library_device_ms=t_main["library_device_ms"],
                    shape=t_main["shape"])
-        for label in ("long", "rgemma", "rgemma_long"):
+        if "device_gb_s" in t_main:
+            rec["device_gb_s"] = t_main["device_gb_s"]
+        for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate"):
             if (name, label) in results["times"]:
-                rec[label] = {k: results["times"][(name, label)][k]
-                              for k in keys}
+                t = results["times"][(name, label)]
+                rec[label] = {k: t[k] for k in keys + ("device_gb_s",)
+                              if k in t}
         records.append(rec)
         short.append({k: rec[k] for k in (
             "name", "launches", "max_err_f32", "max_err_bf16", "ms",
