@@ -16,7 +16,9 @@ Phases, each of which raises on failure (exit code 1):
    the cases of ``tests/test_kernels.py``, both served models' shapes,
    rows that see no key, and the edges of the new designs (K1's bf16
    head-dim tiles up to dh 192 / dv 128 and 256, ragged Sq, q_offset; K2's
-   splits wholly past pos and the ring across split edges): the
+   splits wholly past pos and the ring across split edges; MLA's dh 192
+   / dv 128 at 16/16 heads with v a strided view of the latent
+   expansion, as the model hands it over): the
    attention kernels K1/K2 in float32 (atol/rtol 2e-5, TF32 off) and
    bfloat16 (3e-2), the RG-LRU scan K3 in float32 bit for bit (max error
    0, and within 1e-6), also on a ragged width, strided views, r below one
@@ -40,7 +42,29 @@ Phases, each of which raises on failure (exit code 1):
    copy cut to 5 layers (both segment shapes) held against
    ``force_reference``, teacher-forced within 1e-3 with identical tokens,
    at prompt 128 and past the 2048-slot ring's wrap;
-6. times: each kernel, its plain version, the PyTorch library call and
+6. moe: full-width, uncut granite-moe-1b-a400m (24 ``attn_moe`` layers:
+   attention, 16/8 heads at dh 64, through K1/K2, then a 32-expert
+   top-8 MoE FFN; bfloat16) served the same way, with its own launch-count
+   window (24 K1 per forward, 24 K2 per decode step), the dropped MoE
+   assignments of one forward, an ungated bf16 kernel-vs-reference
+   comparison (logit diff, share of routing that agreed) and a profiler
+   pass that also splits the MoE layers' device time into routing,
+   dispatch, expert GEMMs and combine; then the float32 gate on a copy
+   cut to 4 layers: both dispatches (``einsum``, ``gather``) at prompts
+   128 and 256 (two dispatch groups), teacher-forced against
+   ``force_reference``;
+7. mla: deepseek-v2-lite-16b at full width, cut to 4 layers (the dense
+   ``mla`` layer 0 and 3 ``mla_moe`` layers; 64 experts top-6 plus 2
+   shared), served the same way (4 K1 per forward, 4 K2 per ``naive``
+   decode step at Hkv 16, dh 192, dv 128); its ``absorbed`` decode run
+   once to show it launches no K2; then the float32 gate on ``(mla) +
+   (mla_moe)``: both dispatches and both decode modes at prompts 128 and
+   256.  The float32 gates: logits within 1e-3 at every step whose
+   routing agreed in every MoE layer on both paths, identical greedy
+   tokens, and no expert choice that flips between the paths where the
+   gap between the k-th and (k+1)-th gate was above 1e-5; every flip is
+   printed;
+8. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s); kernel and library each timed by CUDA events and on
@@ -66,12 +90,19 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("env", "build", "parity", "main", "rgemma", "times")
+PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+MOE_STAGES = ("routing", "dispatch", "experts", "combine")
+MOE_KINDS = ("attn_moe", "mla_moe")
+ROUTING_FLIP_MARGIN = 1e-5        # a flip above this gate gap fails
+F32_LOGIT_TOL = 1e-3
+# phase -> the model its served path runs
+PATHS = (("main", "qwen2-0.5b"), ("rgemma", "recurrentgemma-2b"),
+         ("moe", "granite-moe-1b-a400m"), ("mla", "deepseek-v2-lite-16b"))
 KERNEL_META = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -185,9 +216,17 @@ def _err(torch, out, ref, dtype_name):
     return float(err.max()), ok
 
 
-def phase_parity(torch, ops, ref):
+def _no_tf32(torch):
+    """Float32 products at full precision: the parity tolerances and the
+    MoE router's gates need it (TF32 keeps 10 mantissa bits, enough to
+    flip an expert choice near a tie)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def phase_parity(torch, ops, ref):
+    _no_tf32(torch)
     log("parity: torch.backends.cuda.matmul.allow_tf32=False, "
         "torch.backends.cudnn.allow_tf32=False; tolerances f32 2e-5, "
         "bf16 3e-2 (atol and rtol) for K1/K2, 1e-6 for K3 (float32)")
@@ -221,7 +260,13 @@ def phase_parity(torch, ops, ref):
         (2, 70, 300, 4, 2, 128, 128, True, 200, None, 230),    # q_offset, window
         (1, 128, 128, 2, 1, 64, 128, True, None, None, 0),     # dv > dh
         (1, 1000, 1000, 14, 2, 64, 64, True, None, None, 0),   # many tiles
+        # granite's attn_moe prefill: 16/8 heads at dh 64
+        (4, 128, 128, 16, 8, 64, 64, True, None, None, 0),
+        (4, 256, 256, 16, 8, 64, 64, True, None, None, 0),
     ]
+    # MLA prefill: 16/16 heads, dh 192 (nope 128 + rope 64), dv 128; k
+    # contiguous, v a view of the (nope + v)-wide latent expansion
+    mla_cases = [(4, 128, 16), (4, 256, 16), (1, 333, 16), (2, 64, 16)]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for (B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap,
@@ -240,6 +285,17 @@ def phase_parity(torch, ops, ref):
             errs["flash_attention"][name] = max(errs["flash_attention"][name], e)
             check(ok, f"flash_attention {name} case {(B, Sq, Sk, Hq, Hkv, dh, dv)} "
                   f"{kw}: max abs err {e}")
+        for B, S, H in mla_cases:
+            q = _rand(torch, gen, (B, S, H, 192), dtype)
+            k = _rand(torch, gen, (B, S, H, 192), dtype)
+            v = _rand(torch, gen, (B, S, H, 256), dtype)[..., 128:]
+            out = ops.flash_attention(q, k, v, scale=192 ** -0.5)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, scale=192 ** -0.5)
+            e, ok = _err(torch, out, want, name)
+            errs["flash_attention"][name] = max(errs["flash_attention"][name], e)
+            check(ok, f"flash_attention {name} MLA case {(B, S, H)}: max abs "
+                  f"err {e}")
     # (B, S, Hq, Hkv, dh, window, softcap, positions or None=random)
     decode_cases = [
         (2, 256, 4, 2, 64, None, None, None),
@@ -263,7 +319,13 @@ def phase_parity(torch, ops, ref):
         (1, 4096, 7, 1, 64, None, None, [0, 63, 64, 4095]),
         (2, 2048, 10, 1, 256, 2048, None, [2047, 2048, 2107]),
         (8, 4096, 14, 2, 64, None, None, [4095, 17, 2048, 4000, 1, 0, 3000, 255]),
+        # granite's attn_moe decode: 16/8 heads at dh 64
+        (4, 256, 16, 8, 64, None, None, [128, 131, 140, 143]),
     ]
+    # MLA naive decode: 16/16 heads (G 1), dh 192, dv 128, v a view of the
+    # latent expansion; (B, S, positions)
+    mla_decode_cases = [(4, 256, [128, 131, 140, 143]), (3, 100, [99, 0, 50]),
+                        (2, 2048, [2047, 17]), (4, 272, [256, 263, 270, 271])]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for B, S, Hq, Hkv, dh, window, softcap, positions in decode_cases:
@@ -289,8 +351,23 @@ def phase_parity(torch, ops, ref):
                     errs["decode_attention"][name], e)
                 check(ok, f"decode_attention {name} case {(B, S, Hq, Hkv, dh)} "
                       f"{kw} pos {pos.tolist()}: max abs err {e}")
-    n_cases = {"flash_attention": f"{len(flash_cases)} cases x 2 types",
-               "decode_attention": f"{len(decode_cases)} cases x 2 types"}
+        for B, S, positions in mla_decode_cases:
+            k = _rand(torch, gen, (B, S, 16, 192), dtype)
+            v = _rand(torch, gen, (B, S, 16, 256), dtype)[..., 128:]
+            q = _rand(torch, gen, (B, 1, 16, 192), dtype)
+            pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+            out = ops.decode_attention(q, k, v, pos, scale=192 ** -0.5)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q, k, v, pos, scale=192 ** -0.5)
+            e, ok = _err(torch, out, want, name)
+            errs["decode_attention"][name] = max(
+                errs["decode_attention"][name], e)
+            check(ok, f"decode_attention {name} MLA case {(B, S)} pos "
+                  f"{positions}: max abs err {e}")
+    n_cases = {"flash_attention": f"{len(flash_cases) + len(mla_cases)} "
+                                  f"cases x 2 types",
+               "decode_attention": f"{len(decode_cases) + len(mla_decode_cases)} "
+                                   f"cases x 2 types"}
     n_cases["rglru_scan"] = parity_rglru(torch, ops, ref, gen, errs)
     for kname, e in errs.items():
         log(f"parity {kname}: max abs err f32 {e['float32']:.3e} "
@@ -844,10 +921,11 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
         t_pre = work()
         t1 = time.perf_counter()
     events = prof.events()
-    # device events, without the marker's own span on the GPU timeline
+    # device events, without the markers' own spans on the GPU timeline
+    # (the decode region's and the MoE stages' ranges)
     kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name != "decode_steps"]
+            and e.name != "decode_steps" and not e.name.startswith("moe/")]
     out_dir = Path(trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / "decode_trace.json"))
@@ -888,6 +966,11 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
                      name):
             log(f"profile decode port kernel: {us / steps:9.1f} us/step "
                 f"({us / busy_dec:.1%} of device busy)  {name[:70]}")
+    if any(e.name.startswith("moe/") for e in events):
+        res["moe"] = {
+            "prefill": moe_share(torch, events, pre, busy_pre, "prefill", 1),
+            "decode": moe_share(torch, events, dec, busy_dec, "decode per step",
+                                steps)}
     table = prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=15)
     (out_dir / "profile_table.txt").write_text(table)
@@ -897,8 +980,311 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
     return res
 
 
+def moe_share(torch, events, kern, busy_us, label, per):
+    """The MoE layers' device time by stage: each device kernel that
+    starts inside a stage's range (``moe/routing``, ...) on the GPU
+    timeline counts for that stage."""
+    import bisect
+    spans = {st: sorted((e.time_range.start, e.time_range.end) for e in events
+                        if e.name == f"moe/{st}"
+                        and e.device_type == torch.autograd.DeviceType.CUDA)
+             for st in MOE_STAGES}
+    if not any(spans.values()):
+        log(f"profile MoE {label}: the profiler put no MoE range on the GPU "
+            f"timeline: MoE share not measured")
+        return {}
+    stage_us = {st: 0.0 for st in MOE_STAGES}
+    names = {st: {} for st in MOE_STAGES}
+    for st, sp in spans.items():
+        starts = [a for a, _ in sp]
+        for k in kern:
+            i = bisect.bisect_right(starts, k.time_range.start) - 1
+            if i >= 0 and k.time_range.start < sp[i][1]:
+                us = k.time_range.elapsed_us()
+                stage_us[st] += us
+                names[st][k.name] = names[st].get(k.name, 0.0) + us
+    total = sum(stage_us.values())
+    res = {"moe_device_ms": total / per / 1e3, "moe_share": total / busy_us,
+           "stages_ms": {st: us / per / 1e3 for st, us in stage_us.items()}}
+    log(f"profile MoE {label}: {res['moe_device_ms']:.3f} ms of device time, "
+        f"{res['moe_share']:.1%} of the device busy time; "
+        + ", ".join(f"{st} {us / per / 1e3:.3f} ms ({us / busy_us:.1%})"
+                    for st, us in stage_us.items()))
+    for st in MOE_STAGES:
+        top = sorted(names[st].items(), key=lambda kv: -kv[1])[:3]
+        if top:
+            log(f"profile MoE {label} {st} kernels: " + "; ".join(
+                f"{us / per:.1f} us {n[:60]}" for n, us in top))
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 6
+# phases 6 and 7: the MoE and MLA families
+def routing_compare(torch, krec, rrec, n_moe, n_steps):
+    """Every MoE layer's chosen experts on the two paths, step by step:
+    (per step whether every layer chose alike for every token, the flips,
+    the smallest top-k margin seen, the share of token choices that
+    agreed).  A flip's margin is the smaller of the two paths' gaps
+    between that token's k-th and (k+1)-th gate."""
+    check(len(krec.calls) == len(rrec.calls) == n_moe * n_steps,
+          f"routing records {len(krec.calls)}/{len(rrec.calls)}, expected "
+          f"{n_moe} MoE layers x {n_steps} steps")
+    agreed, flips = [], []
+    same = total = 0
+    min_margin = float("inf")
+    for i in range(n_steps):
+        ok = True
+        for layer in range(n_moe):
+            kc, rc = krec.calls[i * n_moe + layer], rrec.calls[i * n_moe + layer]
+            ki, ri = kc["idx"].sort(-1).values, rc["idx"].sort(-1).values
+            margins = torch.minimum(kc["margins"], rc["margins"])
+            min_margin = min(min_margin, float(margins.min()))
+            differs = (ki != ri).any(-1)
+            n_diff = int(differs.sum())
+            same += ki.shape[0] - n_diff
+            total += ki.shape[0]
+            for t in differs.nonzero().flatten().tolist():
+                flips.append(dict(step=i, layer=layer, token=t,
+                                  kernel=ki[t].tolist(),
+                                  reference=ri[t].tolist(),
+                                  margin=float(margins[t])))
+            ok = ok and n_diff == 0
+        agreed.append(ok)
+    return agreed, flips, min_margin, same / total
+
+
+def moe_vs_reference(torch, ops, moe, model, params, toks, max_len, n_tok,
+                     tag, gate):
+    """The kernel path, then the reference path fed its tokens, both with
+    their routing recorded.  With ``gate``: logits within 1e-3 at every
+    step whose routing agreed in every MoE layer, identical greedy tokens,
+    and no flip whose margin is above ``ROUTING_FLIP_MARGIN``."""
+    with moe.record_routing() as krec:
+        k_logits, fed, k_ms = run_steps(torch, ops, model, params, toks,
+                                        max_len, n_tok, reference=False)
+    with moe.record_routing() as rrec:
+        r_logits, _, r_ms = run_steps(torch, ops, model, params, toks,
+                                      max_len, n_tok, reference=True,
+                                      feed=fed)
+    diff, agree, total = compare(torch, k_logits, r_logits, tag)
+    n_moe = sum(kind in MOE_KINDS for kind in model.cfg.layer_kinds)
+    agreed, flips, min_margin, share = routing_compare(torch, krec, rrec,
+                                                       n_moe, n_tok)
+    diffs = [float((a - b).abs().max()) for a, b in zip(k_logits, r_logits)]
+    agreed_diff = max((d for d, ok in zip(diffs, agreed) if ok), default=0.0)
+    pre = krec.calls[:n_moe]
+    dropped = [int(c["dropped"]) for c in pre]
+    B, S = toks.shape
+    res = dict(max_logit_diff=diff, max_logit_diff_agreed_steps=agreed_diff,
+               greedy_agree=agree, of=total, steps_agreed=sum(agreed),
+               steps=len(agreed), flips=flips, min_margin=min_margin,
+               routing_agree_share=share, prefill_dropped=dropped,
+               prefill_assignments=pre[0]["assignments"],
+               capacity=pre[0]["capacity"], groups=pre[0]["groups"],
+               decode_step_ms=_median(k_ms),
+               decode_step_ms_reference=_median(r_ms))
+    log(f"{tag} [batch {B}, prompt {S}, cache {max_len}, {n_tok - 1} decode "
+        f"steps], teacher-forced: max |logit diff| {diff:.3e} (over steps "
+        f"whose routing agreed {agreed_diff:.3e}, limit "
+        f"{F32_LOGIT_TOL if gate else 'none, not gated'}), greedy agreement "
+        f"{agree}/{total}, routing agreed in every MoE layer at "
+        f"{sum(agreed)}/{len(agreed)} steps, {share:.4%} of token choices "
+        f"agree, {len(flips)} flips, smallest top-k margin {min_margin:.3e}; "
+        f"prefill dropped {sum(dropped)} of {n_moe} x "
+        f"{pre[0]['assignments']} assignments ({dropped} per MoE layer; "
+        f"{pre[0]['groups']} groups, capacity {pre[0]['capacity']})")
+    if gate:
+        for f in flips:
+            log(f"{tag} flip: step {f['step']} MoE layer {f['layer']} token "
+                f"{f['token']}: kernel {f['kernel']} reference "
+                f"{f['reference']} margin {f['margin']:.3e}")
+        check(agreed_diff <= F32_LOGIT_TOL,
+              f"{tag}: logits differ by {agreed_diff} at a step whose "
+              f"routing agreed")
+        check(agree == total, f"{tag}: greedy tokens differ {agree}/{total}")
+        bad = [f for f in flips if f["margin"] > ROUTING_FLIP_MARGIN]
+        check(not bad, f"{tag}: {len(bad)} flips above the margin "
+              f"{ROUTING_FLIP_MARGIN}: {bad[:5]}")
+    return res
+
+
+def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
+                 prompt_seed):
+    """A full-width MoE-family model on the card, bf16, seed 0: publish,
+    serve (own launch-count window: one K1 per layer per forward, one K2
+    per layer per decode step), the dropped assignments of one forward,
+    the ungated bf16 comparison and the profiler pass.  Returns (out,
+    model, params, toks)."""
+    from repro_torch.models import make_model
+    from repro_torch.serving import WeightStore
+    B, S, MAX_LEN, N_TOK = 4, 128, 256, 16
+    n = cfg.n_layers
+    prompt = np.random.default_rng(prompt_seed).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    toks = torch.as_tensor(prompt, device="cuda")
+    out: dict = {}
+    t0 = time.perf_counter()
+    model = make_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
+    out["publish_s"] = _publish(store, tag, params)
+
+    ops.reset_launches()                      # this path's run starts
+    bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
+               max_len=MAX_LEN, n_tok=N_TOK)
+    out["launches"] = _counts(ops)            # ... and ends here
+    check_launches(bf, {"flash_attention": n, "decode_attention": 0,
+                        "rglru_scan": 0},
+                   {"flash_attention": 0, "decode_attention": n,
+                    "rglru_scan": 0}, N_TOK, f"{tag} bf16")
+    check(out["launches"]["flash_attention"] > 0
+          and out["launches"]["decode_attention"] > 0,
+          f"a kernel was not launched on the {tag} path: {out['launches']}")
+    _log_served(f"{tag} bf16", bf, N_TOK, out["launches"])
+    out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
+                                   "generate_ms", "cold_timing")})
+
+    with moe.record_routing() as rec, torch.no_grad():
+        x, aux = model.forward(params, toks)
+    check(bool(torch.isfinite(x).all()) and bool(torch.isfinite(aux)),
+          f"{tag} forward not finite")
+    drops = [int(c["dropped"]) for c in rec.calls]
+    out["forward_dropped"] = drops
+    log(f"{tag} bf16 forward (batch {B}, prompt {S}): {len(drops)} MoE layers "
+        f"dropped {sum(drops)} of {len(drops)} x {rec.calls[0]['assignments']}"
+        f" assignments (capacity {rec.calls[0]['capacity']} per expert, "
+        f"{rec.calls[0]['groups']} group(s)); per layer {drops}; aux "
+        f"{float(aux):.5f}")
+    out["bf16_teacher_forced"] = moe_vs_reference(
+        torch, ops, moe, model, params, toks, MAX_LEN, N_TOK,
+        f"{tag} bf16 kernel vs reference path", gate=False)
+    out["decode_step_ms"] = out["bf16_teacher_forced"]["decode_step_ms"]
+    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
+                                   ROOT / "build" / "profile" / tag)
+    return out, model, params, toks
+
+
+def f32_gates(torch, ops, moe, cfg32, variants, prompts, tag):
+    """The float32 gate for each (label, config) of ``variants`` at each
+    prompt: one set of params (seed 0) shared by the variants."""
+    from repro_torch.models import make_model
+    _no_tf32(torch)
+    params = make_model(cfg32, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    gates = {}
+    for label, cfg_v in variants:
+        model = make_model(cfg_v, device="cuda")
+        for toks, max_len, n_tok in prompts:
+            key = f"{label}, prompt {toks.shape[1]}"
+            gates[key] = moe_vs_reference(
+                torch, ops, moe, model, params, toks, max_len, n_tok,
+                f"{tag} f32 [{key}] kernel vs reference path", gate=True)
+    del params
+    torch.cuda.empty_cache()
+    return gates
+
+
+def _prompts(torch, np, cfg, seed):
+    """The gates' prompts: batch 4 at 128 (one dispatch group) and at 256
+    (two groups)."""
+    rng = np.random.default_rng(seed)
+    return [(torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, S),
+                                          dtype=np.int32), device="cuda"),
+             max_len, 16) for S, max_len in ((128, 256), (256, 288))]
+
+
+def _with_moe(cfg, **kw):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+
+
+def _with_mla(cfg, **kw):
+    return dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, **kw))
+
+
+def phase_moe(torch, np, ops, tmp_root, engines):
+    """Full-width, uncut granite-moe-1b-a400m on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")
+    e = cfg.moe
+    log(f"moe: {cfg.name} full width, not cut: {cfg.n_layers} attn_moe "
+        f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads},"
+        f" head_dim {cfg.resolved_head_dim}, {e.n_experts} experts top-"
+        f"{e.top_k} (d_ff {e.d_ff}, {e.n_shared} shared, dispatch "
+        f"{e.dispatch}, group {e.group_size}, capacity factor "
+        f"{e.capacity_factor}), vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; batch 4, prompt 128, cache "
+        f"256, 16 tokens")
+    out, model, params, _ = serve_family(torch, np, ops, moe, cfg, "granite",
+                                         tmp_root, engines, 4)
+    del params, model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=4,
+                                segments=((("attn_moe",), 4),))
+    log(f"granite f32 gate: depth cut from {cfg.n_layers} to "
+        f"{cfg32.n_layers} layers; widths as published")
+    out["f32_gates"] = f32_gates(
+        torch, ops, moe, cfg32,
+        [(d, _with_moe(cfg32, dispatch=d)) for d in ("einsum", "gather")],
+        _prompts(torch, np, cfg, 5), "granite")
+    return out
+
+
+def phase_mla(torch, np, ops, tmp_root, engines):
+    """deepseek-v2-lite-16b on the card: full width, cut to 4 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model, moe
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, n_layers=4,
+                              segments=((("mla",), 1), (("mla_moe",), 3)))
+    m, e = cfg.mla, cfg.moe
+    log(f"mla: {cfg.name} full width, depth cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers (segments {cfg.segments}; uncut "
+        f"{full.param_count() / 1e9:.2f} B params): d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, latent {m.kv_lora_rank}, nope/rope/v "
+        f"{m.nope_head_dim}/{m.rope_head_dim}/{m.v_head_dim}, decode "
+        f"{m.decode_mode}, dense d_ff {cfg.d_ff}, {e.n_experts} experts top-"
+        f"{e.top_k} (d_ff {e.d_ff}, {e.n_shared} shared, dispatch "
+        f"{e.dispatch}), vocab {cfg.vocab_size}, untied, {cfg.dtype}, "
+        f"{cfg.param_count() / 1e9:.3f} B params; batch 4, prompt 128, cache "
+        f"256, 16 tokens")
+    out, model, params, toks = serve_family(torch, np, ops, moe, cfg,
+                                            "deepseek", tmp_root, engines, 6)
+    # the absorbed decode attends over the latents in plain PyTorch: a
+    # prefill and 3 decode steps launch K1 once per layer and K2 never
+    absorbed = make_model(_with_mla(cfg, decode_mode="absorbed"),
+                          device="cuda")
+    c0 = _counts(ops)
+    logits_steps, _, _ = run_steps(torch, ops, absorbed, params, toks, 256, 4,
+                                   reference=False)
+    got = _delta(c0, _counts(ops))
+    out["absorbed_launches"] = got
+    check(got == {"flash_attention": cfg.n_layers, "decode_attention": 0,
+                  "rglru_scan": 0},
+          f"absorbed prefill + 3 decode steps launched {got}")
+    check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
+          "absorbed decode logits not finite")
+    log(f"deepseek bf16 absorbed decode: a prefill and 3 decode steps "
+        f"launched {got}")
+    del params, model, absorbed
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                                segments=((("mla",), 1), (("mla_moe",), 1)))
+    log(f"deepseek f32 gate: depth cut to {cfg32.n_layers} layers "
+        f"{cfg32.segments}; widths as published")
+    out["f32_gates"] = f32_gates(
+        torch, ops, moe, cfg32,
+        [(f"{mode}, {d}", _with_mla(_with_moe(cfg32, dispatch=d),
+                                    decode_mode=mode))
+         for mode in ("naive", "absorbed") for d in ("einsum", "gather")],
+        _prompts(torch, np, cfg, 7), "deepseek")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -949,22 +1335,32 @@ def phase_times(torch, ops, ref):
     def sdpa(*a, **kw):
         return F.scaled_dot_product_attention(*a, **kw, enable_gqa=True)
 
-    # (label, B, S, Hq, Hkv, dh, window): qwen2's main and long shapes,
+    def _v(B, S, H, dv):
+        """v as the model hands it over: contiguous, or for MLA (dv 128
+        beside dh 192) a view of the (nope + v)-wide latent expansion."""
+        if dv == 128 and H == 16:
+            return _rand(torch, gen, (B, S, H, 256), bf16)[..., 128:]
+        return _rand(torch, gen, (B, S, H, dv), bf16)
+
+    # (label, B, S, Hq, Hkv, dh, dv, window): qwen2's main and long shapes,
     # recurrentgemma's attn_local at its main path's shape and at its
-    # longest prefill that the window still covers
-    for label, B, S, Hq, Hkv, dh, window in (
-            ("main", 4, 128, 14, 2, 64, None),
-            ("long", 1, 4096, 14, 2, 64, None),
-            ("rgemma", 4, 128, 10, 1, 256, 2048),
-            ("rgemma_long", 1, 2048, 10, 1, 256, 2048)):
+    # longest prefill that the window still covers, granite's attn_moe and
+    # deepseek's MLA prefill at their main path's shapes
+    for label, B, S, Hq, Hkv, dh, dv, window in (
+            ("main", 4, 128, 14, 2, 64, 64, None),
+            ("long", 1, 4096, 14, 2, 64, 64, None),
+            ("rgemma", 4, 128, 10, 1, 256, 256, 2048),
+            ("rgemma_long", 1, 2048, 10, 1, 256, 256, 2048),
+            ("granite", 4, 128, 16, 8, 64, 64, None),
+            ("deepseek", 4, 128, 16, 16, 192, 128, None)):
         q = _rand(torch, gen, (B, S, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
-        v = _rand(torch, gen, (B, S, Hkv, dh), bf16)
+        v = _v(B, S, Hkv, dv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         w = min(S, window or S)
         pairs = sum(min(i + 1, w) for i in range(S))      # causal, windowed
-        flops = B * Hq * pairs * 2 * (dh + dh)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = B * Hq * pairs * 2 * (dh + dv)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * S * Hq * dv)
         bound, by = _bound(flops, nbytes)
         check(window is None or window >= S,
               "the sdpa yardstick assumes the window covers the sequence")
@@ -973,7 +1369,8 @@ def phase_times(torch, ops, ref):
         def lib():
             return sdpa(qt, kt, vt, is_causal=True)
         rows[("flash_attention", label)] = dict(
-            shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} bf16 causal"
+            shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh}"
+                  + (f" dv={dv}" if dv != dh else "") + " bf16 causal"
                   + (f" window={window}" if window else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
@@ -981,26 +1378,30 @@ def phase_times(torch, ops, ref):
             library_ms=cuda_ms(torch, lib),
             library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
-    for label, B, S, p, Hq, Hkv, dh, window in (
-            ("main", 4, 256, 143, 14, 2, 64, None),
-            ("long", 8, 4096, 4095, 14, 2, 64, None),
-            ("rgemma", 4, 256, 143, 10, 1, 256, 2048)):
+    for label, B, S, p, Hq, Hkv, dh, dv, window in (
+            ("main", 4, 256, 143, 14, 2, 64, 64, None),
+            ("long", 8, 4096, 4095, 14, 2, 64, 64, None),
+            ("rgemma", 4, 256, 143, 10, 1, 256, 256, 2048),
+            ("granite", 4, 256, 143, 16, 8, 64, 64, None),
+            ("deepseek", 4, 256, 143, 16, 16, 192, 128, None)):
         q = _rand(torch, gen, (B, 1, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
-        v = _rand(torch, gen, (B, S, Hkv, dh), bf16)
+        v = _v(B, S, Hkv, dv)
         pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
         mask = ref.decode_slot_valid(pos, S, window)[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         valid = int(ref.decode_slot_valid(pos, S, window)[0].sum())
-        flops = B * Hq * valid * 2 * (dh + dh)
-        nbytes = 2 * (B * Hkv * valid * 2 * dh + 2 * q.numel()) + 4 * B
+        flops = B * Hq * valid * 2 * (dh + dv)
+        nbytes = (2 * (B * Hkv * valid * (dh + dv) + B * Hq * (dh + dv))
+                  + 4 * B)
         bound, by = _bound(flops, nbytes)
         def kern():
             return ops.decode_attention(q, k, v, pos, window=window)
         def lib():
             return sdpa(qt, kt, vt, attn_mask=mask)
         rows[("decode_attention", label)] = dict(
-            shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh} bf16"
+            shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh}"
+                  + (f" dv={dv}" if dv != dh else "") + " bf16"
                   + (f" window={window}" if window else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.decode_attention_ref(
@@ -1083,7 +1484,8 @@ def main(argv=None) -> int:
         results["errs"] = timed("parity", phase_parity, torch, ops, ref)
     # each served path closes its engines and drops its weights on the way
     # out, so the next one starts with the card's memory free
-    for name, fn in (("main", phase_main), ("rgemma", phase_rgemma)):
+    for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
+                     ("moe", phase_moe), ("mla", phase_mla)):
         if name not in phases:
             continue
         tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -1102,19 +1504,22 @@ def main(argv=None) -> int:
         log(f"chip_smoke: ran phases {phases} only")
         return 0
 
-    for key, tag in (("main", "qwen2-0.5b"), ("rgemma", "recurrentgemma-2b")):
+    for key, tag in PATHS:
         r = results[key]
+        moe_share = {part: r["profile"]["moe"][part].get("moe_share")
+                     for part in ("prefill", "decode")} \
+            if "moe" in r["profile"] else None
         log(f"e2e {tag}: cold invoke {r['cold_ms']:.3f} ms, freshened invoke "
             f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
             f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
             f"decode device idle share under the profiler "
-            f"{r['profile'].get('decode_idle_share', 'not measured')}")
+            f"{r['profile'].get('decode_idle_share', 'not measured')}"
+            + (f", MoE share of device time {moe_share}" if moe_share else ""))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in phase_s.items()}))
     # `launches` is this slice's main path, the recurrentgemma run (it
     # launches all three kernels); each path's own counts are beside it
-    paths = {"qwen2-0.5b": results["main"]["launches"],
-             "recurrentgemma-2b": results["rgemma"]["launches"]}
+    paths = {tag: results[key]["launches"] for key, tag in PATHS}
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "bound_by")
     records, short = [], []
@@ -1136,7 +1541,8 @@ def main(argv=None) -> int:
                    shape=t_main["shape"])
         if "device_gb_s" in t_main:
             rec["device_gb_s"] = t_main["device_gb_s"]
-        for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate"):
+        for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate",
+                      "granite", "deepseek"):
             if (name, label) in results["times"]:
                 t = results["times"][(name, label)]
                 rec[label] = {k: t[k] for k in keys + ("device_gb_s",)

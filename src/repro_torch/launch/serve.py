@@ -5,15 +5,22 @@ freshen platform and drive synthetic load through a chain.
   PYTHONPATH=src python -m repro_torch.launch.serve --full --seq 128 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --no-freshen
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --full
 
 Without ``--full`` each stage serves the reduced config (d_model 128,
 vocab 256) as the reference launcher does; ``--full`` serves the
 unreduced config.  Weights are random, drawn from ``--seed``.  The
 ported architectures are those whose block kinds the port has:
 ``qwen2-0.5b`` (the default), ``recurrentgemma-2b`` (RG-LRU and local
-attention; 2.17 B parameters, 4.39 GB in bf16 per stage at ``--full``)
-and ``gemma2-27b`` (held against the reference at reduced size only);
-any other ``--arch`` raises, naming the ROADMAP.md item that ports it.
+attention; 2.17 B parameters, 4.39 GB in bf16 per stage at ``--full``),
+``granite-moe-1b-a400m`` (attention and a 32-expert top-8 MoE; 2.7 GB
+per stage at ``--full``), ``deepseek-v2-lite-16b`` (MLA, a dense first
+layer, then 64-expert top-6 MoE layers with 2 shared experts; 31.4 GB
+per stage at ``--full``, not yet run uncut on a card: ROADMAP.md module
+item 3) and ``gemma2-27b`` (held against the reference at reduced
+size only); ``xlstm-350m`` raises, naming the ROADMAP.md item that ports
+it.  An MoE layer dispatches whole groups of tokens, so batch x seq must
+be a multiple of the config's ``group_size`` (512) or below it.
 """
 from __future__ import annotations
 # fabriclint: allow-file[clock] -- launch-time measurement harness:

@@ -85,7 +85,9 @@ class Model:
 
     # ------------------------------------------------------------------
     def forward(self, params, tokens):
-        """Full-sequence forward to hidden states; returns (x, aux)."""
+        """Full-sequence forward to hidden states; returns (x, aux), aux
+        the MoE load-balance loss summed over layers as a float32 scalar
+        tensor on the model's device (zero without MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         aux = 0.0
@@ -93,7 +95,9 @@ class Model:
             x, _, a = transformer.segment_apply(
                 pattern, repeats, cfg, params[f"seg{i}"], x)
             aux = aux + a
-        return x, torch.tensor(aux, dtype=torch.float32, device=x.device)
+        if not torch.is_tensor(aux):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int) -> tuple:

@@ -3,32 +3,34 @@ and seeding, and the segment loop (``repro/models/transformer.py``).
 
 Segment params stay stacked as ``(repeats, ...)`` leaves, matching the
 checkpoint keys; the reference's ``lax.scan`` over repeats becomes a
-Python loop over views of those stacks.  This slice ports the attention
-blocks (``attn``, and ``attn_local`` with its sliding window and ring
-cache) and the RG-LRU block (``rglru``); the other kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Python loop over views of those stacks.  The port has the attention
+blocks (``attn``; ``attn_local`` with its sliding window and ring cache;
+``attn_moe``, attention then the MoE FFN), the MLA blocks (``mla`` with a
+dense MLP, ``mla_moe`` with the MoE FFN) and the RG-LRU block
+(``rglru``); the xLSTM kinds raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 Decode caches are preallocated buffers written in place: attention
-writes its token's K/V into its slot, and the RG-LRU block's new
-``h``/``conv`` state is copied into its buffers.
+writes its token's K/V into its slot, MLA its token's latents, and the
+RG-LRU block's new ``h``/``conv`` state is copied into its buffers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.checkpoint.io import tree_map
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, mla, moe, rglru
 from repro_torch.models.layers import (ParamFactory, init_rmsnorm,
                                       rmsnorm_apply)
 from repro_torch.specs import TensorSpec, zeros_like_specs
 
-_ATTN = ("attn", "attn_local")
-PORTED = _ATTN + ("rglru",)
+_ATTN = ("attn", "attn_local", "attn_moe")
+_MLA = ("mla", "mla_moe")
+_MOE = ("attn_moe", "mla_moe")
+_FULL_LENGTH_KV = ("attn", "attn_moe")     # the other attention is windowed
+PORTED = _ATTN + _MLA + ("rglru",)
 # block kind -> the ROADMAP.md module item that ports it
 _PENDING = {
-    "attn_moe": "ROADMAP.md module item 2 (MoE)",
-    "mla": "ROADMAP.md module item 3 (MLA)",
-    "mla_moe": "ROADMAP.md module item 3 (MLA)",
     "mlstm": "ROADMAP.md module item 5 (xLSTM)",
     "slstm": "ROADMAP.md module item 5 (xLSTM)",
 }
@@ -59,26 +61,37 @@ def init_block(make: ParamFactory, kind: str, cfg) -> dict:
         p["post_norm1"] = init_rmsnorm(make, cfg.d_model)
     if kind in _ATTN:
         p["mixer"] = layers.init_attention(make, cfg)
+    elif kind in _MLA:
+        p["mixer"] = mla.init_mla(make, cfg)
     else:
         p["mixer"] = rglru.init_rglru_block(make, cfg)
     if _has_ffn(kind, cfg):
         p["norm2"] = init_rmsnorm(make, cfg.d_model)
         if cfg.use_post_norm:
             p["post_norm2"] = init_rmsnorm(make, cfg.d_model)
-        p["ffn"] = layers.init_mlp(make, cfg)
+        if kind in _MOE:
+            p["ffn"] = moe.init_moe(make, cfg)
+        else:
+            p["ffn"] = layers.init_mlp(make, cfg)
     return p
 
 
 def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     """Returns (x, new_cache_or_None, aux).  In decode, ``cache`` is
-    updated in place and returned.  In prefill the third item is what
-    seeds a decode cache: (k, v) for attention, {"h", "conv"} for
-    RG-LRU.  ``aux`` (the MoE load-balance loss in the reference) is 0.0
-    for every ported kind."""
+    updated in place and returned.  In prefill the second item is what
+    seeds a decode cache: (k, v) for attention, (ckv, kr) for MLA,
+    {"h", "conv"} for RG-LRU.  ``aux`` is the MoE load-balance loss, a
+    float32 scalar tensor, or 0.0 for the kinds without MoE (no device
+    work for them)."""
     require_ported(kind)
     aux = 0.0
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind == "rglru":
+    if kind in _MLA:
+        if decode:
+            out, new_cache = mla.mla_decode(p["mixer"], h, cfg, cache, pos)
+        else:
+            out, new_cache = mla.mla_prefill(p["mixer"], h, cfg)
+    elif kind == "rglru":
         out, new_cache = rglru.rglru_block_apply(
             p["mixer"], h, cfg, cache=cache if decode else None)
         if decode:                 # in place: the state lives in the buffers
@@ -96,7 +109,10 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     x = x + out
     if _has_ffn(kind, cfg):
         h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        out2 = layers.mlp_apply(p["ffn"], h2, cfg.activation)
+        if kind in _MOE:
+            out2, aux = moe.moe_apply(p["ffn"], h2, cfg)
+        else:
+            out2 = layers.mlp_apply(p["ffn"], h2, cfg.activation)
         if cfg.use_post_norm:
             out2 = rmsnorm_apply(p["post_norm2"], out2, cfg.norm_eps)
         x = x + out2
@@ -107,14 +123,21 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
 # caches
 def block_cache_specs(kind, cfg, batch: int, max_len: int) -> dict:
     """Shape and type of each leaf of one block's decode cache, as the
-    reference's ``init_block_cache`` makes it: K/V in the model's type,
-    the RG-LRU state ``h`` in float32 and ``conv`` in the model's type."""
+    reference's ``init_block_cache`` makes it: K/V (full length, or the
+    window for ``attn_local``) and MLA's ``ckv``/``kr`` in the model's
+    type, the RG-LRU state ``h`` in float32 and ``conv`` in the model's
+    type."""
     require_ported(kind)
+    dtype = getattr(torch, cfg.dtype)
     if kind == "rglru":
         return rglru.rglru_cache_specs(cfg, batch)
-    L = max_len if kind == "attn" else min(max_len, cfg.window_size)
+    if kind in _MLA:
+        m = cfg.mla
+        return {"ckv": TensorSpec((batch, max_len, m.kv_lora_rank), dtype),
+                "kr": TensorSpec((batch, max_len, m.rope_head_dim), dtype)}
+    L = max_len if kind in _FULL_LENGTH_KV else min(max_len, cfg.window_size)
     spec = TensorSpec((batch, L, cfg.n_kv_heads, cfg.resolved_head_dim),
-                      getattr(torch, cfg.dtype))
+                      dtype)
     return {"k": spec, "v": spec}
 
 
@@ -125,14 +148,15 @@ def init_block_cache(kind, cfg, batch: int, max_len: int, device) -> dict:
 
 def seed_block_cache(kind, cfg, cache, prefill_out, seq_len: int) -> dict:
     """Place prefill products into a decode cache, in place; returns it.
-    Attention K/V fill slots (a ring buffer wraps); RG-LRU states are
-    copied as they are."""
+    Attention K/V and MLA latents fill slots (a ring buffer wraps);
+    RG-LRU states are copied as they are."""
     require_ported(kind)
     if kind == "rglru":
         for name, val in prefill_out.items():
             cache[name].copy_(val)
         return cache
-    for name, val in zip(("k", "v"), prefill_out):
+    names = ("ckv", "kr") if kind in _MLA else ("k", "v")
+    for name, val in zip(names, prefill_out):
         buf = cache[name]
         L = buf.shape[1]
         val = val.to(buf.dtype)
@@ -176,8 +200,9 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
 
     With ``seg_caches`` (stacked ``(repeats, ...)`` buffers) the caches
     are written in place: in decode each layer writes its token's K/V or
-    its new recurrent state; in prefill each layer's K/V or final state
-    seed its slice as soon as they are made."""
+    its new recurrent state; in prefill each layer's K/V, latents or
+    final state seed its slice as soon as they are made.  ``aux`` sums
+    the MoE layers' load-balance losses (0.0 when there are none)."""
     aux = 0.0
     for r in range(repeats):
         params_r = layer_params(seg_params, r)

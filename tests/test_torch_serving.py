@@ -232,6 +232,19 @@ def test_endpoint_defaults_to_cuda_and_refuses_cpu_fallback(setup):
         store.load("tiny")
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b",
+                                  "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
+def test_serve_launcher_on_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --device cpu``: each served
+    architecture's reduced config through a freshened two-stage chain."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--arch", arch, "--requests", "2"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke mode=freshen requests=2" in out
+    assert out.count("first=") == 2 and "bill: fn=" in out
+
+
 # ---------------------------------------------------------------------------
 # generation
 def _gen_runtime(cfg, store, n_steps=N_STEPS):
