@@ -64,7 +64,18 @@ Phases, each of which raises on failure (exit code 1):
    tokens, and no expert choice that flips between the paths where the
    gap between the k-th and (k+1)-th gate was above 1e-5; every flip is
    printed;
-8. times: each kernel, its plain version, the PyTorch library call and
+8. xlstm: full-width, uncut xlstm-350m (12 ``mlstm`` and 12 ``slstm``
+   blocks, d_model 1024; bfloat16) served the same way; its launch-count
+   window shows that nothing on this path reaches K1, K2 or K3 (the
+   reference is plain jnp here); a profiler pass, and one over a single
+   sLSTM layer's prefill (the per-token host loop); then two float32
+   gates with TF32 off: the full model on the card against the same
+   model on the CPU, teacher-forced over 16 positions, and a copy cut to
+   ``(mlstm, slstm)`` whose prefill of 64 tokens and 64 teacher-forced
+   decode steps must give a 128-token forward's logits (the chunkwise
+   prefill's states handed over to the step recurrence); each within
+   1e-3 with identical greedy tokens;
+9. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s); kernel and library each timed by CUDA events and on
@@ -90,7 +101,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "times")
+PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
+          "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -102,7 +114,8 @@ ROUTING_FLIP_MARGIN = 1e-5        # a flip above this gate gap fails
 F32_LOGIT_TOL = 1e-3
 # phase -> the model its served path runs
 PATHS = (("main", "qwen2-0.5b"), ("rgemma", "recurrentgemma-2b"),
-         ("moe", "granite-moe-1b-a400m"), ("mla", "deepseek-v2-lite-16b"))
+         ("moe", "granite-moe-1b-a400m"), ("mla", "deepseek-v2-lite-16b"),
+         ("xlstm", "xlstm-350m"))
 KERNEL_META = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1285,6 +1298,187 @@ def phase_mla(torch, np, ops, tmp_root, engines):
 
 # ---------------------------------------------------------------------------
 # phase 8
+def profile_slstm_prefill(torch, p, cfg, x):
+    """One sLSTM layer's prefill (its per-token loop) under torch.profiler:
+    device events, device-busy ms and wall ms, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm
+
+    def run():
+        with torch.no_grad():
+            out, _ = xlstm.slstm_block_apply(p, x, cfg)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(out).all()), "sLSTM prefill not finite")
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    res = dict(wall_ms=wall * 1e3, device_events=len(kern),
+               device_ms=sum(e.time_range.elapsed_us() for e in kern) / 1e3)
+    B, S, _ = x.shape
+    log(f"profile sLSTM layer prefill (bf16, batch {B}, prompt {S}, profiler "
+        f"on): wall {res['wall_ms']:.2f} ms, {len(kern)} device events "
+        f"({len(kern) / S:.1f} per token), device busy {res['device_ms']:.3f}"
+        f" ms")
+    return res
+
+
+def parallel_vs_recurrent(torch, np, cfg2, B=4, S=128, S0=64):
+    """A float32 copy cut to ``(mlstm, slstm)``: a prefill of S0 tokens,
+    then S - S0 decode steps fed the prompt's next tokens, each against
+    one forward's logits over all S tokens (two chunks of 64)."""
+    from repro_torch.models import make_model
+    model = make_model(cfg2, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg2.vocab_size, size=(B, S), dtype=np.int32), device="cuda")
+    with torch.no_grad():
+        x, _ = model.forward(params, toks)
+        full = model._logits(params, x).float()             # (B, S, V)
+        cache = model.init_cache(B, S)
+        logits, cache = model.prefill(params, toks[:, :S0], max_len=S,
+                                      cache=cache)
+        steps = [logits.float()]
+        for t in range(S0, S):
+            pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], pos)
+            steps.append(logits.float())
+    # the prefill's logits are position S0 - 1's; the step at t is t's
+    diff, agree, total = compare(torch, steps,
+                                 [full[:, t:t + 1] for t in range(S0 - 1, S)],
+                                 "parallel vs recurrent")
+    return diff, agree, total
+
+
+def phase_xlstm(torch, np, ops, tmp_root, engines):
+    """Full-width, uncut xlstm-350m on the card: plain PyTorch, no port
+    kernel on the path."""
+    from repro_torch.checkpoint import flatten_with_paths, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.serving import WeightStore
+
+    cfg = get_config("xlstm-350m")
+    x = cfg.xlstm
+    di = int(cfg.d_model * x.proj_factor_mlstm)
+    B, S, MAX_LEN, N_TOK = 4, 128, 256, 16
+    log(f"xlstm: {cfg.name} full width, not cut: {cfg.n_layers} layers "
+        f"{cfg.segments}, d_model {cfg.d_model}, {cfg.n_heads} heads; mLSTM "
+        f"inner {di} (head dim {di // cfg.n_heads}), chunk {x.chunk_size}, "
+        f"conv {x.conv_width}; sLSTM FFN "
+        f"{int(cfg.d_model * x.proj_factor_slstm)}; vocab {cfg.vocab_size}, tied, {cfg.dtype}; batch {B}, prompt {S}, "
+        f"cache {MAX_LEN}, {N_TOK} tokens")
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, size=(B, S),
+                                               dtype=np.int32)
+    toks = torch.as_tensor(prompt, device="cuda")
+    out: dict = {"seconds": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(step):                    # where the phase's seconds go
+        now = time.perf_counter()
+        out["seconds"][step] = now - t_lap[0]
+        t_lap[0] = now
+
+    t0 = time.perf_counter()
+    model = make_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in flatten_with_paths(params).values())
+    log(f"xlstm: {n_params / 1e6:.1f} M params")
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
+    out["publish_s"] = _publish(store, "xlstm", params)
+    lap("init and publish")
+
+    ops.reset_launches()                      # this path's run starts
+    bf = serve(np, ops, cfg, store, "xlstm", "xlstm bf16", prompt, engines,
+               max_len=MAX_LEN, n_tok=N_TOK)
+    out["launches"] = _counts(ops)            # ... and ends here
+    lap("serve")
+    none = {k: 0 for k in out["launches"]}
+    check_launches(bf, none, none, N_TOK, "xlstm bf16")
+    check(out["launches"] == none,
+          f"the xlstm path launched a port kernel: {out['launches']}")
+    _log_served("xlstm bf16", bf, N_TOK, out["launches"])
+    out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
+                                   "generate_ms", "cold_timing")})
+    logits_steps, _, step_ms = run_steps(torch, ops, model, params, toks,
+                                         MAX_LEN, N_TOK, reference=False)
+    check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
+          "xlstm bf16 decode logits not finite")
+    out["decode_step_ms"] = _median(step_ms)
+    log(f"xlstm bf16 decode step median {out['decode_step_ms']:.2f} ms "
+        f"(batch {B}, {N_TOK - 1} steps)")
+    lap("decode steps")
+    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
+                                   ROOT / "build" / "profile" / "xlstm")
+    lap("profile")
+    with torch.no_grad():
+        h = model._embed(params, toks)
+    out["slstm_prefill"] = profile_slstm_prefill(
+        torch, tree_map(lambda t: t[0], params["seg0"][1]["mixer"]), cfg, h)
+    lap("sLSTM profile")
+    del params, model, h
+    torch.cuda.empty_cache()
+
+    # ---- float32 gates, TF32 off --------------------------------------------
+    _no_tf32(torch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = make_model(cfg32, device="cuda")
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(0))
+    card, fed, _ = run_steps(torch, ops, model32, params32, toks, MAX_LEN,
+                             N_TOK, reference=False)
+    lap("f32 on the card")
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.cpu(), params32)
+    del params32, model32
+    torch.cuda.empty_cache()
+    host, _, _ = run_steps(torch, ops, make_model(cfg32, device="cpu"),
+                           cpu_params, toks.cpu(), MAX_LEN, N_TOK,
+                           reference=False, feed=[t.cpu() for t in fed])
+    del cpu_params
+    diff, agree, total = compare(torch, [a.cpu() for a in card], host,
+                                 "card vs CPU")
+    out["f32_card_vs_cpu"] = {"max_logit_diff": diff, "greedy_agree": agree,
+                              "of": total, "cpu_s": time.perf_counter() - t0}
+    log(f"xlstm f32 card vs CPU, full depth, teacher-forced over {N_TOK} "
+        f"positions x {B} rows: max |logit diff| {diff:.3e} (limit 1e-3), "
+        f"greedy agreement {agree}/{total}; the CPU run took "
+        f"{out['f32_card_vs_cpu']['cpu_s']:.1f} s")
+    check(diff <= F32_LOGIT_TOL, f"xlstm f32 card vs CPU differ by {diff}")
+    check(agree == total, f"xlstm f32 card vs CPU tokens differ: "
+          f"{agree}/{total}")
+    lap("f32 on the CPU")
+
+    cfg2 = dataclasses.replace(cfg32, n_layers=2,
+                               segments=((("mlstm", "slstm"), 1),))
+    diff, agree, total = parallel_vs_recurrent(torch, np, cfg2)
+    out["f32_parallel_vs_recurrent"] = {"max_logit_diff": diff,
+                                        "greedy_agree": agree, "of": total}
+    log(f"xlstm f32 parallel vs recurrent, depth cut to {cfg2.segments}: "
+        f"prefill 64 tokens + 64 teacher-forced decode steps against one "
+        f"128-token forward, x 4 rows: max |logit diff| {diff:.3e} (limit "
+        f"1e-3), greedy agreement {agree}/{total}")
+    check(diff <= F32_LOGIT_TOL,
+          f"xlstm f32 parallel vs recurrent differ by {diff}")
+    check(agree == total, f"xlstm f32 parallel vs recurrent tokens differ: "
+          f"{agree}/{total}")
+    lap("parallel vs recurrent")
+    log("xlstm seconds by step " + json.dumps(
+        {k: round(v, 1) for k, v in out["seconds"].items()}))
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -1485,7 +1679,8 @@ def main(argv=None) -> int:
     # each served path closes its engines and drops its weights on the way
     # out, so the next one starts with the card's memory free
     for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
-                     ("moe", phase_moe), ("mla", phase_mla)):
+                     ("moe", phase_moe), ("mla", phase_mla),
+                     ("xlstm", phase_xlstm)):
         if name not in phases:
             continue
         tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -1512,6 +1707,8 @@ def main(argv=None) -> int:
         log(f"e2e {tag}: cold invoke {r['cold_ms']:.3f} ms, freshened invoke "
             f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
             f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
+            f"device events per decode step "
+            f"{r['profile'].get('decode_kernels_per_step', 'not measured')}, "
             f"decode device idle share under the profiler "
             f"{r['profile'].get('decode_idle_share', 'not measured')}"
             + (f", MoE share of device time {moe_share}" if moe_share else ""))

@@ -6,6 +6,7 @@ freshen platform and drive synthetic load through a chain.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --no-freshen
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --full --seq 128
 
 Without ``--full`` each stage serves the reduced config (d_model 128,
 vocab 256) as the reference launcher does; ``--full`` serves the
@@ -17,10 +18,12 @@ attention; 2.17 B parameters, 4.39 GB in bf16 per stage at ``--full``),
 per stage at ``--full``), ``deepseek-v2-lite-16b`` (MLA, a dense first
 layer, then 64-expert top-6 MoE layers with 2 shared experts; 31.4 GB
 per stage at ``--full``, not yet run uncut on a card: ROADMAP.md module
-item 3) and ``gemma2-27b`` (held against the reference at reduced
-size only); ``xlstm-350m`` raises, naming the ROADMAP.md item that ports
-it.  An MoE layer dispatches whole groups of tokens, so batch x seq must
-be a multiple of the config's ``group_size`` (512) or below it.
+item 3), ``xlstm-350m`` (12 mLSTM and 12 sLSTM blocks; 0.81 GB per
+stage at ``--full``; the mLSTM prefill runs in chunks of 64, so ``--seq``
+must be a multiple of 64 or below it) and ``gemma2-27b`` (held against
+the reference at reduced size only).  An MoE layer dispatches whole
+groups of tokens, so batch x seq must be a multiple of the config's
+``group_size`` (512) or below it.
 """
 from __future__ import annotations
 # fabriclint: allow-file[clock] -- launch-time measurement harness:

@@ -11,6 +11,7 @@ embeddings of pixtral and musicgen.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -22,7 +23,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (ParamFactory, dense_init,
                                       init_rmsnorm, rmsnorm_apply)
-from repro_torch.specs import TensorSpec, zeros_like_specs
+from repro_torch.specs import tensors_like_specs
 
 
 def _softcap(x, cap):
@@ -105,7 +106,7 @@ class Model:
         has its own type, as in the reference (an RG-LRU ``h`` is float32
         in a bf16 model)."""
         return tuple(
-            tuple({n: TensorSpec((repeats,) + s.shape, s.dtype)
+            tuple({n: dataclasses.replace(s, shape=(repeats,) + s.shape)
                    for n, s in transformer.block_cache_specs(
                        kind, self.cfg, batch, max_len).items()}
                   for kind in pattern)
@@ -116,12 +117,14 @@ class Model:
         return tree_map(lambda s: s.shape, self.cache_specs(batch, max_len))
 
     def init_cache(self, batch: int, max_len: int) -> tuple:
-        """Zeroed decode cache: tuple over segments of tuple over pattern
-        positions of per-block dicts stacked as (repeats, ...): {"k","v"}
-        of (repeats, B, L, Hkv, hd) for attention, {"h","conv"} for
-        RG-LRU."""
-        return zeros_like_specs(self.cache_specs(batch, max_len),
-                                self.device)
+        """A new decode cache with the reference's initial values (zeros,
+        but the mLSTM's ``m`` at -1e30 and the sLSTM's ``n`` at 1e-12):
+        tuple over segments of tuple over pattern positions of per-block
+        dicts stacked as (repeats, ...): {"k","v"} of (repeats, B, L,
+        Hkv, hd) for attention, {"h","conv"} for RG-LRU, {"C","n","m",
+        "conv"} for mLSTM, {"c","n","h","m"} for sLSTM."""
+        return tensors_like_specs(self.cache_specs(batch, max_len),
+                                  self.device)
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
                 cache=None):

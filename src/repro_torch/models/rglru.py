@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamFactory, dense_init
-from repro_torch.specs import TensorSpec, zeros_like_specs
+from repro_torch.specs import TensorSpec, tensors_like_specs
 
 
 def _lambda_from_uniform(u, c: float):
@@ -155,4 +155,4 @@ def rglru_cache_specs(cfg, batch: int) -> dict:
 
 
 def init_rglru_cache(cfg, batch: int, device) -> dict:
-    return zeros_like_specs(rglru_cache_specs(cfg, batch), device)
+    return tensors_like_specs(rglru_cache_specs(cfg, batch), device)

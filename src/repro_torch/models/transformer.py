@@ -6,40 +6,43 @@ checkpoint keys; the reference's ``lax.scan`` over repeats becomes a
 Python loop over views of those stacks.  The port has the attention
 blocks (``attn``; ``attn_local`` with its sliding window and ring cache;
 ``attn_moe``, attention then the MoE FFN), the MLA blocks (``mla`` with a
-dense MLP, ``mla_moe`` with the MoE FFN) and the RG-LRU block
-(``rglru``); the xLSTM kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+dense MLP, ``mla_moe`` with the MoE FFN), the RG-LRU block (``rglru``)
+and the xLSTM blocks (``mlstm``, ``slstm``, which carry their own up and
+down projections and have no FFN): every kind the reference has.
 
 Decode caches are preallocated buffers written in place: attention
 writes its token's K/V into its slot, MLA its token's latents, and the
-RG-LRU block's new ``h``/``conv`` state is copied into its buffers.
+recurrent blocks' new states (RG-LRU ``h``/``conv``, mLSTM
+``C``/``n``/``m``/``conv``, sLSTM ``c``/``n``/``h``/``m``) are copied
+into their buffers.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.checkpoint.io import tree_map
-from repro_torch.models import layers, mla, moe, rglru
+from repro_torch.models import layers, mla, moe, rglru, xlstm
 from repro_torch.models.layers import (ParamFactory, init_rmsnorm,
                                       rmsnorm_apply)
-from repro_torch.specs import TensorSpec, zeros_like_specs
+from repro_torch.specs import TensorSpec, tensors_like_specs
 
 _ATTN = ("attn", "attn_local", "attn_moe")
 _MLA = ("mla", "mla_moe")
 _MOE = ("attn_moe", "mla_moe")
 _FULL_LENGTH_KV = ("attn", "attn_moe")     # the other attention is windowed
-PORTED = _ATTN + _MLA + ("rglru",)
-# block kind -> the ROADMAP.md module item that ports it
-_PENDING = {
-    "mlstm": "ROADMAP.md module item 5 (xLSTM)",
-    "slstm": "ROADMAP.md module item 5 (xLSTM)",
+# recurrent kinds: block -> (init, apply, cache specs)
+_RECURRENT = {
+    "rglru": (rglru.init_rglru_block, rglru.rglru_block_apply,
+              rglru.rglru_cache_specs),
+    "mlstm": (xlstm.init_mlstm_block, xlstm.mlstm_block_apply,
+              xlstm.mlstm_cache_specs),
+    "slstm": (xlstm.init_slstm_block, xlstm.slstm_block_apply,
+              xlstm.slstm_cache_specs),
 }
+PORTED = _ATTN + _MLA + tuple(_RECURRENT)
 
 
 def require_ported(kind: str) -> None:
-    if kind in _PENDING:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: {_PENDING[kind]}")
     if kind not in PORTED:
         raise ValueError(kind)
 
@@ -64,7 +67,7 @@ def init_block(make: ParamFactory, kind: str, cfg) -> dict:
     elif kind in _MLA:
         p["mixer"] = mla.init_mla(make, cfg)
     else:
-        p["mixer"] = rglru.init_rglru_block(make, cfg)
+        p["mixer"] = _RECURRENT[kind][0](make, cfg)
     if _has_ffn(kind, cfg):
         p["norm2"] = init_rmsnorm(make, cfg.d_model)
         if cfg.use_post_norm:
@@ -79,10 +82,10 @@ def init_block(make: ParamFactory, kind: str, cfg) -> dict:
 def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     """Returns (x, new_cache_or_None, aux).  In decode, ``cache`` is
     updated in place and returned.  In prefill the second item is what
-    seeds a decode cache: (k, v) for attention, (ckv, kr) for MLA,
-    {"h", "conv"} for RG-LRU.  ``aux`` is the MoE load-balance loss, a
-    float32 scalar tensor, or 0.0 for the kinds without MoE (no device
-    work for them)."""
+    seeds a decode cache: (k, v) for attention, (ckv, kr) for MLA, the
+    final state dict for the recurrent kinds.  ``aux`` is the MoE
+    load-balance loss, a float32 scalar tensor, or 0.0 for the kinds
+    without MoE (no device work for them)."""
     require_ported(kind)
     aux = 0.0
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
@@ -91,8 +94,8 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
             out, new_cache = mla.mla_decode(p["mixer"], h, cfg, cache, pos)
         else:
             out, new_cache = mla.mla_prefill(p["mixer"], h, cfg)
-    elif kind == "rglru":
-        out, new_cache = rglru.rglru_block_apply(
+    elif kind in _RECURRENT:
+        out, new_cache = _RECURRENT[kind][1](
             p["mixer"], h, cfg, cache=cache if decode else None)
         if decode:                 # in place: the state lives in the buffers
             for name, val in new_cache.items():
@@ -125,12 +128,12 @@ def block_cache_specs(kind, cfg, batch: int, max_len: int) -> dict:
     """Shape and type of each leaf of one block's decode cache, as the
     reference's ``init_block_cache`` makes it: K/V (full length, or the
     window for ``attn_local``) and MLA's ``ckv``/``kr`` in the model's
-    type, the RG-LRU state ``h`` in float32 and ``conv`` in the model's
-    type."""
+    type, the recurrent states in float32 and the ``conv`` windows in
+    the model's type, each with its initial value."""
     require_ported(kind)
     dtype = getattr(torch, cfg.dtype)
-    if kind == "rglru":
-        return rglru.rglru_cache_specs(cfg, batch)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind][2](cfg, batch)
     if kind in _MLA:
         m = cfg.mla
         return {"ckv": TensorSpec((batch, max_len, m.kv_lora_rank), dtype),
@@ -142,16 +145,16 @@ def block_cache_specs(kind, cfg, batch: int, max_len: int) -> dict:
 
 
 def init_block_cache(kind, cfg, batch: int, max_len: int, device) -> dict:
-    return zeros_like_specs(block_cache_specs(kind, cfg, batch, max_len),
-                            device)
+    return tensors_like_specs(block_cache_specs(kind, cfg, batch, max_len),
+                              device)
 
 
 def seed_block_cache(kind, cfg, cache, prefill_out, seq_len: int) -> dict:
     """Place prefill products into a decode cache, in place; returns it.
     Attention K/V and MLA latents fill slots (a ring buffer wraps);
-    RG-LRU states are copied as they are."""
+    recurrent states are copied as they are."""
     require_ported(kind)
-    if kind == "rglru":
+    if kind in _RECURRENT:
         for name, val in prefill_out.items():
             cache[name].copy_(val)
         return cache

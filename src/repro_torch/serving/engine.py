@@ -381,6 +381,32 @@ class ServingEngine:
     def chain(self, names: List[str], delay: float = 0.06):
         self.scheduler.predictor.graph.add_chain(names, delay=delay)
 
+    def adopt_trace_policy(self, policy, time_scale: float = 1.0
+                           ) -> Dict[str, object]:
+        """Apply a trace-learned ``repro_torch.workloads.HistoryPolicy``
+        to the deployed endpoints: each pool whose endpoint name appears
+        in the policy's history is live-reconfigured (keep-alive from the
+        observed idle-time distribution, max_instances from Little's
+        law), and the policy's inter-arrival histograms seed recurrence
+        prediction so periodic endpoints self-prewarm.  Each pool's
+        *measured* cold start is passed through as the keep-alive floor,
+        so a pool is never retuned to reap faster than it can boot.
+        Returns ``{name: PoolConfig}`` for the pools that were retuned."""
+        applied = {}
+        # one scheduler: the cluster's workers come with placement
+        # (ROADMAP.md module item 7)
+        for name in policy.functions:
+            pool = self.scheduler.pools.get(name)
+            if pool is None:
+                continue
+            cfg = policy.pool_config(
+                name, base=pool.config, time_scale=time_scale,
+                measured_cold_start=pool.measured_cold_start())
+            self.scheduler.apply_pool_config(name, cfg)
+            applied[name] = cfg
+        policy.prime(self.scheduler.predictor, time_scale=time_scale)
+        return applied
+
     def latency_summary(self, app: str) -> dict:
         from repro_torch.cluster import ClusterAccountant
         return ClusterAccountant([self.scheduler.accountant]).latency_summary(

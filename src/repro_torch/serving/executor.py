@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.specs import spec_leaves, zeros_like_specs
+from repro_torch.specs import spec_leaves, tensors_like_specs
 
 
 class Compiled:
@@ -82,7 +82,7 @@ class Executor:
         """Run the compiled step once on zeros and wait for the device:
         warms the caching allocator, cuBLAS handles and the kernels'
         first launches — the CWND-warming analogue."""
-        args = zeros_like_specs(specs, compiled.device)
+        args = tensors_like_specs(specs, compiled.device)
         t0 = time.monotonic()
         out: Any = compiled(*args)
         if compiled.device.type == "cuda":

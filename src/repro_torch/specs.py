@@ -9,9 +9,12 @@ import torch
 
 @dataclass(frozen=True)
 class TensorSpec:
-    """Shape and type of one tensor."""
+    """Shape and type of one tensor, and the value a new one is filled
+    with (a cache leaf that does not start at zero, such as the mLSTM
+    stabiliser ``m``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    fill: float = 0.0
 
 
 def spec_leaves(specs) -> list:
@@ -23,10 +26,12 @@ def spec_leaves(specs) -> list:
     return [leaf for s in specs for leaf in spec_leaves(s)]
 
 
-def zeros_like_specs(specs, device):
-    """A tree of zero tensors on ``device`` shaped like ``specs``."""
+def tensors_like_specs(specs, device):
+    """A tree of new tensors on ``device`` shaped like ``specs``, each
+    filled with its spec's ``fill``."""
     if isinstance(specs, TensorSpec):
-        return torch.zeros(specs.shape, dtype=specs.dtype, device=device)
+        return torch.full(specs.shape, specs.fill, dtype=specs.dtype,
+                          device=device)
     if isinstance(specs, dict):
-        return {k: zeros_like_specs(v, device) for k, v in specs.items()}
-    return tuple(zeros_like_specs(s, device) for s in specs)
+        return {k: tensors_like_specs(v, device) for k, v in specs.items()}
+    return tuple(tensors_like_specs(s, device) for s in specs)

@@ -32,11 +32,14 @@ SRC = ROOT / "src"
 COPIES = sorted(
     [f"core/{m}.py" for m in (
         "__init__", "accounting", "backend", "backend_worker",
-        "backend_template", "cache", "freshen", "network", "pool",
-        "prediction", "runtime", "scheduler")]
+        "backend_template", "cache", "freshen", "infer", "network", "pool",
+        "prediction", "resources", "runtime", "scheduler", "triggers")]
     + [f"telemetry/{m}.py" for m in ("__init__", "metrics", "tracer",
                                      "export")]
-    + ["serving/batching.py", "cluster/accounting.py"]
+    + [f"workloads/{m}.py" for m in ("__init__", "adapt", "history",
+                                     "replay", "trace")]
+    + ["serving/batching.py", "serving/datastore.py",
+       "cluster/accounting.py"]
     + [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")])
 
 

@@ -23,6 +23,7 @@ from repro_torch.checkpoint import flatten_with_paths, load_pytree  # noqa: E402
 from repro_torch.configs import get_config as port_get_config  # noqa: E402
 from repro_torch.models import make_model  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.layers import ParamFactory  # noqa: E402
 
 ATOL = 1e-4
 B, S, MAX_LEN, STEPS = 2, 16, 24, 6
@@ -158,14 +159,19 @@ def test_seed_block_cache_ring_matches_reference(seq_len):
 
 
 def test_unported_block_kinds_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        make_model(port_get_config("xlstm-350m").reduced(), device="cpu")
-    # the attn_local, rglru, attn_moe, mla and mla_moe kinds are ported:
-    # these build on the CPU
-    for arch in ("gemma2-27b", "recurrentgemma-2b", "granite-moe-1b-a400m",
-                 "deepseek-v2-lite-16b"):
+    """Every block kind is ported (xLSTM last): every config builds on
+    the CPU, and a kind the reference does not have is refused."""
+    from repro_torch.configs import list_archs
+    assert "xlstm-350m" in list_archs()
+    for arch in list_archs():
         m = make_model(port_get_config(arch).reduced(), device="cpu")
-        assert m.init(torch.Generator().manual_seed(0))["seg0"]
+        assert m.init(torch.Generator().manual_seed(0))["seg0"], arch
+    assert not hasattr(transformer, "_PENDING")
+    cfg = port_get_config("qwen2-0.5b").reduced()
+    with pytest.raises(ValueError, match="bogus"):
+        transformer.init_block(ParamFactory(), "bogus", cfg)
+    with pytest.raises(ValueError, match="bogus"):
+        transformer.block_cache_specs("bogus", cfg, 1, 8)
 
 
 def test_model_defaults_to_cuda_and_refuses_cpu_fallback():

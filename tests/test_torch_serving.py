@@ -234,7 +234,7 @@ def test_endpoint_defaults_to_cuda_and_refuses_cpu_fallback(setup):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b",
                                   "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "xlstm-350m"])
 def test_serve_launcher_on_cpu(arch, capsys):
     """``python -m repro_torch.launch.serve --device cpu``: each served
     architecture's reduced config through a freshened two-stage chain."""
@@ -320,3 +320,56 @@ def test_generation_matches_jax_endpoint(setup):
                              app="serving"))
     jrt.init()
     assert port_tokens == jrt.run({"tokens": prompt})
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
+def test_second_session_on_a_reused_cache_matches_a_fresh_runtime(
+        arch, tmp_path):
+    """Sessions on one freshened runtime share its session cache.  A
+    second session on another prompt gives what a fresh runtime gives:
+    the same tokens and every cache leaf bit for bit.  So prefill
+    overwrites each recurrent leaf (RG-LRU ``h``/``conv``; mLSTM
+    ``C``/``n``/``m``/``conv``; sLSTM ``c``/``n``/``h``/``m``) and no K/V
+    slot of the first session survives where the second reads (the
+    16-slot ``attn_local`` ring wraps)."""
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.models import make_model
+    base = port_get_config(arch).reduced(d_model=128)
+    cfg = dataclasses.replace(base, vocab_size=256, dtype="float32",
+                              window_size=base.window_size and 16)
+    store = WeightStore(str(tmp_path))
+    store.publish("tiny", make_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(3)))
+
+    def runtime():
+        ep = _ep(cfg, store, batch_size=2)
+
+        def plan_factory(rt):
+            base = ep.build_plan(rt)
+            base.entries.extend(ep.session_plan_entries(MAX_LEN))
+            return base
+
+        def code(ctx, args):
+            toks = ep.generate(ctx, args["tokens"], n_steps=N_STEPS,
+                               max_len=MAX_LEN, plan_offset=3)
+            cache = flatten_with_paths(ctx.fr_fetch(4))
+            return toks, {k: t.clone() for k, t in cache.items()}
+
+        rt = Runtime(FunctionSpec("gen", code, plan_factory=plan_factory,
+                                  app="serving"))
+        rt.init()
+        rt.freshen(blocking=True)
+        return rt
+
+    rng = np.random.default_rng(4)
+    first, second = (rng.integers(0, 256, (2, SEQ)).astype(np.int32)
+                     for _ in range(2))
+    reused = runtime()
+    reused.run({"tokens": first})
+    got_tokens, got_cache = reused.run({"tokens": second})
+    want_tokens, want_cache = runtime().run({"tokens": second})
+    assert got_tokens == want_tokens
+    assert got_cache.keys() == want_cache.keys()
+    for k in want_cache:
+        assert torch.equal(got_cache[k], want_cache[k]), k
