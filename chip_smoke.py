@@ -75,10 +75,27 @@ Phases, each of which raises on failure (exit code 1):
    decode steps must give a 128-token forward's logits (the chunkwise
    prefill's states handed over to the step recurrence); each within
    1e-3 with identical greedy tokens;
-9. times: each kernel, its plain version, the PyTorch library call and
+9. train: the second entry point, training.  K1's float32 row
+   log-sum-exp (written only when asked for) and K1b, the flash-attention
+   backward, against their plain versions in float32 and bfloat16 at
+   qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
+   at dh 128, MLA's dh 192 / dv 128 and recurrentgemma's dh 256 at G 10
+   with window 2048, and at the edges (ragged S, Sq < Sk with q_offset,
+   non-causal, dv > dh, a do with a strided head dimension); K2 and K3
+   raising NotImplementedError on CUDA tensors that require grad; a
+   float32 gate on qwen2-0.5b at full width cut to 2 layers (loss and
+   every gradient leaf within 1e-4 of ``force_reference``, then 5
+   ``Trainer`` steps on each path, losses within 1e-4 relative); then
+   qwen2-0.5b uncut in bfloat16 through ``Trainer``, 10 steps of batch 4
+   x 1024 from ``packed_batches`` in 2 microbatches: finite losses that
+   fall, its own launch-count window (per step 132 K1, 48 K1b), step ms,
+   tokens/s, peak memory, and one profiled step (device idle share, K1b's
+   and K1's shares of device time; trace in ``build/profile/train``);
+10. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
-   achieved GB/s); kernel and library each timed by CUDA events and on
+   achieved GB/s; K1b at the four training-phase shapes against the
+   backward of sdpa); kernel and library each timed by CUDA events and on
    the device alone, and compared device time to device time.
 
 It prints the kernel records on a ``kernels `` line and as one JSON
@@ -102,7 +119,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "times")
+          "train", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -120,6 +137,10 @@ KERNEL_META = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:72"),
+    # a mirror of the reference's jnp custom VJP, not of a TPU kernel
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:177"),
     "decode_attention": dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:69"),
@@ -127,6 +148,10 @@ KERNEL_META = {
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:40"),
 }
+
+
+# the kernels the served paths launch (K1b runs only in training)
+SERVING_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -186,6 +211,14 @@ def phase_build(torch, ops):
     for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
         log(f"  K1 bf16 up to dh {dh}, dv {dv}: {smem(dh, dv)} bytes of "
             f"dynamic shared memory per block")
+    from repro_torch.kernels import flash_attention_bwd as fb
+    bwd_smem = getattr(ops.LIBRARY.get("flash_attention_bwd"), fb.SMEM_BYTES)
+    for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        dkdv, dq = bwd_smem(dh, dv, 0), bwd_smem(dh, dv, 1)
+        check(max(dkdv, dq) <= 232448, f"K1b at dh {dh}, dv {dv} asks for "
+              f"{max(dkdv, dq)} bytes of shared memory")
+        log(f"  K1b at dh {dh}, dv {dv}: dkdv {dkdv}, dq {dq} bytes of "
+            f"dynamic shared memory per block")
     from repro_torch.kernels import rglru_scan as k3
     k3_smem = getattr(ops.LIBRARY.get("rglru_scan"), k3.SMEM_BYTES)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -244,7 +277,7 @@ def phase_parity(torch, ops, ref):
         "torch.backends.cudnn.allow_tf32=False; tolerances f32 2e-5, "
         "bf16 3e-2 (atol and rtol) for K1/K2, 1e-6 for K3 (float32)")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in KERNEL_META}
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in SERVING_KERNELS}
     # (B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap, q_offset)
     flash_cases = [
         (1, 128, 128, 4, 4, 32, 32, True, None, None, 0),      # MHA
@@ -677,9 +710,9 @@ def phase_main(torch, np, ops, tmp_root, engines):
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_layers, "decode_attention": 0,
-                        "rglru_scan": 0},
+                        "rglru_scan": 0, "flash_attention_bwd": 0},
                    {"flash_attention": 0, "decode_attention": n_layers,
-                    "rglru_scan": 0}, N_TOK, "qwen2 bf16")
+                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, "qwen2 bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the main path: {out['launches']}")
@@ -774,10 +807,10 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_attn, "decode_attention": 0,
-                        "rglru_scan": n_rec},
+                        "rglru_scan": n_rec, "flash_attention_bwd": 0},
                    {"flash_attention": 0, "decode_attention": n_attn,
-                    "rglru_scan": 0}, N_TOK, "rgemma bf16")
-    check(all(v > 0 for v in out["launches"].values()),
+                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, "rgemma bf16")
+    check(all(out["launches"][k] > 0 for k in SERVING_KERNELS),
           f"a kernel was not launched on the rgemma path: {out['launches']}")
     _log_served("rgemma bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
@@ -1149,9 +1182,9 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
-                        "rglru_scan": 0},
+                        "rglru_scan": 0, "flash_attention_bwd": 0},
                    {"flash_attention": 0, "decode_attention": n,
-                    "rglru_scan": 0}, N_TOK, f"{tag} bf16")
+                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, f"{tag} bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the {tag} path: {out['launches']}")
@@ -1275,7 +1308,7 @@ def phase_mla(torch, np, ops, tmp_root, engines):
     got = _delta(c0, _counts(ops))
     out["absorbed_launches"] = got
     check(got == {"flash_attention": cfg.n_layers, "decode_attention": 0,
-                  "rglru_scan": 0},
+                  "rglru_scan": 0, "flash_attention_bwd": 0},
           f"absorbed prefill + 3 decode steps launched {got}")
     check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
           "absorbed decode logits not finite")
@@ -1478,6 +1511,359 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
 
 
 # ---------------------------------------------------------------------------
+# phase train: the port's training entry point on the card
+# K1b's shapes: (label, B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap,
+# scale, q_offset, types).  qwen2's training shape, gemma2's softcap at dh
+# 128, MLA's dh 192 / dv 128 (v a strided view), recurrentgemma's dh 256
+# at G 10 with its window, then the edges: ragged S, a window across
+# tiles, Sq < Sk with q_offset, non-causal, dv > dh, dh 256 in float32
+BOTH = ("float32", "bfloat16")
+# K1b's bfloat16 gradients, beyond the element check at TOL (whose atol is
+# of the size of most gradient elements here): each must be its float32
+# gradient rounded once, |got - g32| <= 2**-8 |g32| (half a bf16 ulp) plus
+# the float32 TOL for the reassociated sums, and its largest error at most
+# BWD_BF16_SCALED_TOL of its largest element (one ulp is at most 2**-7)
+BF16_HALF_ULP = 2.0 ** -8
+BWD_BF16_SCALED_TOL = 1e-2
+BWD_CASES = [
+    ("qwen2", 4, 1024, 1024, 14, 2, 64, 64, True, None, None, None, 0, BOTH),
+    ("gemma2", 1, 1024, 1024, 32, 16, 128, 128, True, None, 50.0,
+     (4608 / 32) ** -0.5, 0, BOTH),
+    ("mla", 2, 512, 512, 16, 16, 192, 128, True, None, None, 192 ** -0.5, 0,
+     BOTH),
+    ("rgemma", 1, 2048, 2048, 10, 1, 256, 256, True, 2048, None, None, 0,
+     ("bfloat16",)),
+    ("ragged", 2, 100, 100, 4, 2, 64, 64, True, None, None, None, 0, BOTH),
+    ("window", 1, 300, 300, 4, 1, 128, 128, True, 64, 30.0, None, 0, BOTH),
+    ("q_offset", 2, 70, 300, 4, 2, 64, 64, True, 200, None, None, 230, BOTH),
+    ("non-causal", 1, 128, 128, 4, 2, 32, 32, False, None, None, None, 0, BOTH),
+    ("dv>dh", 1, 128, 128, 2, 1, 64, 128, True, None, None, None, 0, BOTH),
+    ("dh256-f32", 1, 256, 256, 10, 1, 256, 256, True, 64, None, None, 0,
+     ("float32",)),
+]
+TRAIN_GRAD_TOL = 1e-4     # per leaf: max |g_kernels - g_plain| / max |g_plain|
+TRAIN_LOSS_TOL = 1e-4     # each step's loss, relative, kernels vs plain
+
+
+def _bwd_inputs(torch, gen, case, dtype):
+    """q, k, v, do and the keywords of one K1b case; MLA's v is a view of
+    the (nope + v)-wide latent expansion, as the model hands it over."""
+    (_, B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap, scale,
+     q_offset, _) = case
+    q = _rand(torch, gen, (B, Sq, Hq, dh), dtype)
+    k = _rand(torch, gen, (B, Sk, Hkv, dh), dtype)
+    if dh == 192:
+        v = _rand(torch, gen, (B, Sk, Hkv, 2 * dv), dtype)[..., dv:]
+    else:
+        v = _rand(torch, gen, (B, Sk, Hkv, dv), dtype)
+    do = _rand(torch, gen, (B, Sq, Hq, dv), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              q_offset=q_offset)
+    return q, k, v, do, kw
+
+
+def _bf16_grad_errs(torch, got, want, want32):
+    """A bfloat16 gradient against the plain version's (``want``) and its
+    float32 gradient before the cast (``want32``): (largest error over the
+    largest element, largest excess over half an ulp plus the float32
+    TOL, relative L2 error)."""
+    got, want = got.float(), want.float()
+    top = float(want.abs().max())
+    scaled = float((got - want).abs().max()) / max(top, 1e-30)
+    tol = TOL["float32"]
+    bound = ((BF16_HALF_ULP + tol["rtol"]) * want32.abs() + tol["atol"])
+    excess = float(((got - want32).abs() - bound).max())
+    rel_l2 = float(torch.linalg.vector_norm(got - want)
+                   / torch.linalg.vector_norm(want).clamp_min(1e-30))
+    return scaled, excess, rel_l2
+
+
+def train_parity(torch, ops, ref):
+    """K1's row log-sum-exp and K1b's (dq, dk, dv) against their plain
+    versions on the same inputs (K1b and its plain version both get K1's
+    output and lse), at the TOL of each type, TF32 off; K1b's bfloat16
+    gradients also against their float32 gradients (``_bf16_grad_errs``)."""
+    _no_tf32(torch)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    errs = {"lse": {n: 0.0 for n in BOTH},
+            "flash_attention_bwd": {n: 0.0 for n in BOTH}}
+    bf16 = {"scaled": 0.0, "excess": -1.0, "rel_l2": 0.0}
+    n = 0
+    for case in BWD_CASES:
+        for name in case[-1]:
+            dtype = getattr(torch, name)
+            q, k, v, do, kw = _bwd_inputs(torch, gen, case, dtype)
+            if case[0] == "ragged":
+                # a do whose head dimension is strided: K1b copies it
+                do = do.transpose(2, 3).contiguous().transpose(2, 3)
+            out, lse = ops.flash_attention.launch_kernel(q, k, v,
+                                                         return_lse=True, **kw)
+            torch.cuda.synchronize()
+            r_out, r_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                   **kw)
+            e, ok = _err(torch, lse, r_lse, name)
+            errs["lse"][name] = max(errs["lse"][name], e)
+            check(ok and lse.shape == r_lse.shape,
+                  f"K1 lse {name} case {case[0]}: max abs err {e}")
+            e, ok = _err(torch, out, r_out, name)
+            check(ok, f"K1 (with lse) {name} case {case[0]}: max abs err {e}")
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            want32 = (ref.flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), out.float(), lse,
+                do.float(), **kw) if name == "bfloat16" else want)
+            for gname, a, b, b32 in zip(("dq", "dk", "dv"), got, want,
+                                        want32):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"K1b {gname} {tuple(a.shape)} {a.dtype}")
+                e, ok = _err(torch, a, b, name)
+                errs["flash_attention_bwd"][name] = max(
+                    errs["flash_attention_bwd"][name], e)
+                check(ok, f"K1b {name} case {case[0]} {gname}: max abs err "
+                      f"{e}")
+                if name != "bfloat16":
+                    continue
+                scaled, excess, rel_l2 = _bf16_grad_errs(torch, a, b, b32)
+                bf16 = {"scaled": max(bf16["scaled"], scaled),
+                        "excess": max(bf16["excess"], excess),
+                        "rel_l2": max(bf16["rel_l2"], rel_l2)}
+                check(scaled <= BWD_BF16_SCALED_TOL,
+                      f"K1b bfloat16 case {case[0]} {gname}: max abs err "
+                      f"over max |grad| {scaled:.3e} > {BWD_BF16_SCALED_TOL}")
+                check(excess <= 0.0,
+                      f"K1b bfloat16 case {case[0]} {gname}: not its float32 "
+                      f"gradient rounded once (excess {excess:.3e} over half "
+                      f"an ulp plus the float32 tolerance)")
+            n += 1
+            log(f"train parity {case[0]} {name}: lse and dq/dk/dv within "
+                f"tolerance")
+    log(f"train parity: K1 lse max abs err f32 {errs['lse']['float32']:.3e} "
+        f"bf16 {errs['lse']['bfloat16']:.3e}; K1b max abs err f32 "
+        f"{errs['flash_attention_bwd']['float32']:.3e} bf16 "
+        f"{errs['flash_attention_bwd']['bfloat16']:.3e} over {n} cases; "
+        f"K1b bf16 max abs err over max |grad| {bf16['scaled']:.3e} (limit "
+        f"{BWD_BF16_SCALED_TOL}), relative L2 error {bf16['rel_l2']:.3e}, "
+        f"largest excess over half an ulp of the float32 gradient plus the "
+        f"float32 tolerance {bf16['excess']:.3e} (limit 0): ok")
+    errs["bwd_bf16"] = bf16
+    return errs
+
+
+def grad_raises(torch, ops):
+    """K2 and K3 have no backward kernel: on CUDA tensors that require
+    grad they must raise, never hand back a tensor cut from the graph."""
+    c0 = _counts(ops)
+    a = torch.rand((2, 16, 64), device="cuda", requires_grad=True)
+    b = torch.randn((2, 16, 64), device="cuda", requires_grad=True)
+    q = torch.randn((2, 1, 4, 64), device="cuda", requires_grad=True)
+    kc = torch.randn((2, 32, 2, 64), device="cuda")
+    pos = torch.tensor([5, 9], dtype=torch.int32, device="cuda")
+    for name, fn in (("rglru_scan", lambda: ops.rglru_scan(a, b)),
+                     ("decode_attention",
+                      lambda: ops.decode_attention(q, kc, kc, pos))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            log(f"train: {name} under grad raises NotImplementedError: {e}")
+        else:
+            raise SmokeFailure(f"{name} on CUDA tensors that require grad "
+                               f"did not raise")
+    check(_counts(ops) == c0, "a refused call launched a kernel")
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b| (0 when both are 0)."""
+    scale = float(b.abs().max())
+    diff = float((a.float() - b.float()).abs().max())
+    return diff / scale if scale else diff
+
+
+def train_gate(torch, np, ops):
+    """qwen2-0.5b at full width cut to 2 layers, float32, TF32 off: the
+    loss and every gradient leaf through K1/K1b against the same under
+    ``force_reference()``, then 5 ``Trainer`` steps on each path from the
+    same params and batches, loss curves compared step by step."""
+    from repro_torch.checkpoint import flatten_with_paths, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, packed_batches
+    from repro_torch.models import make_model
+    from repro_torch.train import (OptimizerConfig, Trainer, TrainerConfig,
+                                   loss_and_grads)
+    _no_tf32(torch)
+    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                              segments=((("attn",), 2),))
+    B, S, STEPS = 2, 256, 5
+    data = packed_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                     batch_size=B, seed=7))
+    batches = [next(data) for _ in range(STEPS)]
+    model = make_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in batches[0].items()}
+    c0 = _counts(ops)
+    lk, _, gk = loss_and_grads(model, params, batch, seq_chunk=128)
+    torch.cuda.synchronize()
+    got = _delta(c0, _counts(ops))
+    # 2 layers, one checkpoint each: a forward and its recomputation
+    check(got["flash_attention"] == 4 and got["flash_attention_bwd"] == 2,
+          f"the gate's loss and grads launched {got}")
+    c0 = _counts(ops)
+    with ops.force_reference():
+        lr, _, gr = loss_and_grads(model, params, batch, seq_chunk=128)
+    check(_counts(ops) == c0, "the force_reference gradients launched a "
+          "kernel")
+    gk, gr = flatten_with_paths(gk), flatten_with_paths(gr)
+    errs = {k: _rel_err(gk[k], gr[k]) for k in gr}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(lk) - float(lr)) / abs(float(lr))
+    log(f"train gate (qwen2-0.5b full width, 2 layers, float32, batch {B}, "
+        f"seq {S}): loss {float(lk):.6f} vs plain {float(lr):.6f} (rel "
+        f"{loss_err:.3e}); grads of {len(errs)} leaves, worst max |diff| / "
+        f"max |plain| {errs[worst]:.3e} at {worst} (limit {TRAIN_GRAD_TOL})")
+    check(loss_err <= TRAIN_LOSS_TOL, f"gate loss differs by {loss_err}")
+    check(errs[worst] <= TRAIN_GRAD_TOL,
+          f"gate grad {worst} differs by {errs[worst]}")
+
+    def curve(reference):
+        p0 = tree_map(lambda t: t.clone(), params)
+        tr = Trainer(model, OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                            total_steps=STEPS),
+                     TrainerConfig(steps=STEPS), iter(batches), params=p0)
+        with ops.force_reference() if reference else contextlib.nullcontext():
+            return [h["loss"] for h in tr.run()]
+    ck, cr = curve(False), curve(True)
+    curve_err = max(abs(a - b) / abs(b) for a, b in zip(ck, cr))
+    log(f"train gate, {STEPS} Trainer steps: losses {[round(x, 6) for x in ck]}"
+        f" vs plain {[round(x, 6) for x in cr]}; worst rel diff "
+        f"{curve_err:.3e} (limit {TRAIN_LOSS_TOL})")
+    check(all(np.isfinite(ck)) and curve_err <= TRAIN_LOSS_TOL,
+          f"gate loss curves differ by {curve_err}")
+    return dict(loss_rel_err=loss_err, grad_rel_err=errs[worst],
+                grad_worst_leaf=worst, curve_rel_err=curve_err,
+                curve=ck, curve_plain=cr)
+
+
+def train_full(torch, np, ops, trace_dir):
+    """qwen2-0.5b uncut in bfloat16 through ``Trainer``: 10 steps of batch
+    4 x 1024 tokens from ``packed_batches`` in 2 microbatches at the
+    launcher's defaults, then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, packed_batches
+    from repro_torch.models import make_model, transformer
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+    cfg = get_config("qwen2-0.5b")
+    B, S, MB, STEPS = 4, 1024, 2, 10
+    t0 = time.perf_counter()
+    data = packed_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                     batch_size=B, seed=0))
+    batches = [next(data) for _ in range(STEPS + 1)]     # set-up, not steps
+    data_s = time.perf_counter() - t0
+    model = make_model(cfg, device="cuda")
+    trainer = Trainer(model, OptimizerConfig(peak_lr=1e-3,
+                                             warmup_steps=STEPS // 10,
+                                             total_steps=STEPS),
+                      TrainerConfig(steps=STEPS, num_microbatches=MB),
+                      iter(batches[:STEPS]),
+                      generator=torch.Generator(device="cuda").manual_seed(0))
+    log(f"train: {cfg.name} uncut, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {cfg.param_count() / 1e6:.1f} M "
+        f"params; batch {B} x {S} tokens in {MB} microbatches, {STEPS} "
+        f"steps (data made in {data_s:.1f} s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                      # the training path's run starts
+    hist = trainer.run()
+    launches = _counts(ops)                   # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    log(f"train losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(h['grad_norm'], 3) for h in hist]}")
+    check(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-3:]}")
+    # remat: R / k groups of k layers; each layer runs forward once, again
+    # in its group's recomputation (which stops before the group's last
+    # layer: its input is all the group's backward needs) and once more in
+    # its own backward: 3k - 1 K1 launches per group and microbatch
+    R = cfg.n_layers
+    k = transformer._sqrt_divisor(R)
+    per_step = {"flash_attention": MB * (R // k) * (3 * k - 1),
+                "flash_attention_bwd": MB * R, "decode_attention": 0,
+                "rglru_scan": 0}
+    check(launches == _times(per_step, STEPS),
+          f"training launches {launches} != {STEPS} x {per_step}")
+    step_s = sorted(h["seconds"] for h in hist[1:])
+    step_ms = step_s[len(step_s) // 2] * 1e3
+    res = dict(launches=launches, steps=STEPS, losses=losses,
+               step_ms=step_ms, first_step_ms=hist[0]["seconds"] * 1e3,
+               tokens_per_s=B * S / (step_ms / 1e3), peak_bytes=peak)
+    log(f"train: step median {step_ms:.1f} ms (first {res['first_step_ms']:.1f}"
+        f" ms), {res['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB; launches per step "
+        f"{ {n: c // STEPS for n, c in launches.items()} }")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batches[STEPS])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    out_dir = Path(trace_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "train_step_trace.json"))
+    if not kern:
+        log("train profile: the profiler recorded no device events: device "
+            "time not measured")
+        return res
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    k1b = sum(us for n, us in by_name.items()
+              if re.search(r"(flash_bwd_\w+|bwd_delta|bwd_reduce)_kernel", n))
+    k1 = sum(us for n, us in by_name.items()
+             if re.search(r"flash_(fwd|wgmma)_kernel", n))
+    res.update(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+               device_events=len(kern), idle_share=1 - busy / wall_us,
+               k1b_ms=k1b / 1e3, k1b_share=k1b / busy, k1_ms=k1 / 1e3,
+               k1_share=k1 / busy)
+    log(f"train profile (one step): wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.2f} ms in {len(kern)} device events, idle share "
+        f"{res['idle_share']:.3f}; K1b {k1b / 1e3:.2f} ms "
+        f"({res['k1b_share']:.1%} of device time), K1 {k1 / 1e3:.2f} ms "
+        f"({res['k1_share']:.1%})")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"train profile top: {us / 1e3:8.3f} ms ({us / busy:.1%})  "
+            f"{name[:90]}")
+    table = prof.key_averages().table(sort_by="self_cpu_time_total",
+                                      row_limit=12)
+    (out_dir / "profile_table.txt").write_text(table)
+    log("train profile host ops by self CPU time (one step, profiler on):")
+    for line in table.splitlines()[:16]:
+        log(f"  {line[:150]}")
+    return res
+
+
+def phase_train(torch, np, ops, ref):
+    """Training on the card: K1's lse and K1b against their plain
+    versions, K2 and K3 refusing grad, the float32 gate, then full-width
+    bf16 qwen2-0.5b through ``Trainer``."""
+    out = {"errs": train_parity(torch, ops, ref)}
+    grad_raises(torch, ops)
+    out["gate"] = train_gate(torch, np, ops)
+    torch.cuda.empty_cache()
+    out.update(train_full(torch, np, ops, ROOT / "build" / "profile" /
+                          "train"))
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
@@ -1625,6 +2011,51 @@ def phase_times(torch, ops, ref):
             bound_by=by)
         row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
         rows[("rglru_scan", label)] = row
+    # K1b at the training path's shape ("main": qwen2, B 4, S 1024) and at
+    # gemma2's, MLA's and recurrentgemma's shapes; the yardstick is the
+    # backward of sdpa (its forward + backward minus its forward), timed
+    # only (sdpa has no softcap: gemma2's row times it without one)
+    for case in BWD_CASES[:4]:
+        label = "main" if case[0] == "qwen2" else case[0]
+        q, k, v, do, kw = _bwd_inputs(torch, gen, case, bf16)
+        out, lse = ops.flash_attention.launch_kernel(q, k, v, return_lse=True,
+                                                     **kw)
+        B, S, Hq, dh = q.shape
+        dv = v.shape[-1]
+        check(kw["window"] is None or kw["window"] >= S,
+              "the sdpa yardstick assumes the window covers the sequence")
+        w = min(S, kw["window"] or S)
+        pairs = sum(min(i + 1, w) for i in range(S))
+        flops = B * Hq * pairs * 2 * (3 * dh + 2 * dv)   # s, dp, dv, dk, dq
+        # q, k, v, out, do and lse read; dq, dk, dv written
+        nbytes = (2 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
+                       + do.numel()) + 4 * lse.numel())
+        bound, by = _bound(flops, nbytes)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def kern():
+            return ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+        def fwd():
+            return sdpa(qt, kt, vt, is_causal=True, scale=kw["scale"])
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+        rows[("flash_attention_bwd", label)] = dict(
+            shape=f"B={B} S={S} Hq={Hq} Hkv={k.shape[2]} dh={dh}"
+                  + (f" dv={dv}" if dv != dh else "") + " bf16 causal"
+                  + (f" window={kw['window']}" if kw["window"] else "")
+                  + (f" softcap={kw['softcap']} (sdpa without)"
+                     if kw["softcap"] else ""),
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
+            plain_ms=cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, lse, do, **kw), iters=3, warmup=1),
+            library_ms=cuda_ms(torch, fwd_bwd) - cuda_ms(torch, fwd),
+            library_device_ms=(device_ms(torch, fwd_bwd)
+                               - device_ms(torch, fwd)),
+            bound_ms=bound, bound_by=by)
     for (name, label), r in rows.items():
         # the factor compares device time with device time
         lib = ("none" if r["library_ms"] is None
@@ -1693,6 +2124,8 @@ def main(argv=None) -> int:
             engines.clear()
             shutil.rmtree(tmp_root, ignore_errors=True)
             torch.cuda.empty_cache()
+    if "train" in phases:
+        results["train"] = timed("train", phase_train, torch, np, ops, ref)
     if "times" in phases:
         results["times"] = timed("times", phase_times, torch, ops, ref)
     if not set(PHASES) <= set(phases):
@@ -1712,21 +2145,34 @@ def main(argv=None) -> int:
             f"decode device idle share under the profiler "
             f"{r['profile'].get('decode_idle_share', 'not measured')}"
             + (f", MoE share of device time {moe_share}" if moe_share else ""))
+    tr = results["train"]
+    log(f"e2e qwen2-0.5b training (bf16, batch 4 x 1024, 2 microbatches): "
+        f"step {tr['step_ms']:.3f} ms, {tr['tokens_per_s']:.1f} tokens/s, "
+        f"peak memory {tr['peak_bytes'] / 1e9:.3f} GB, device idle share "
+        f"{tr.get('idle_share', 'not measured')}, K1b share of device time "
+        f"{tr.get('k1b_share', 'not measured')}, K1 share "
+        f"{tr.get('k1_share', 'not measured')}")
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in phase_s.items()}))
-    # `launches` is this slice's main path, the recurrentgemma run (it
-    # launches all three kernels); each path's own counts are beside it
+    # `launches` is, for K1-K3, the recurrentgemma run (it launches all
+    # three serving kernels) and, for K1b, the training run; each path's
+    # own counts are beside it
     paths = {tag: results[key]["launches"] for key, tag in PATHS}
+    paths["qwen2-0.5b train"] = tr["launches"]
+    errs_all = dict(results["errs"],
+                    flash_attention_bwd=tr["errs"]["flash_attention_bwd"])
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "bound_by")
     records, short = [], []
     for name, meta in KERNEL_META.items():
         t_main = results["times"][(name, "main")]
-        errs = results["errs"][name]
+        errs = errs_all[name]
         mod = ops.MODULES[name]
+        path = ("qwen2-0.5b train" if name == "flash_attention_bwd"
+                else "recurrentgemma-2b")
         rec = dict(name=name, route="cuda", **meta, design=mod.DESIGN,
                    device_kernels_per_call=mod.DEVICE_KERNELS_PER_CALL,
-                   launches=paths["recurrentgemma-2b"][name],
+                   launches=paths[path][name],
                    launches_by_path={p: c[name] for p, c in paths.items()},
                    max_abs_err=max(e for e in errs.values() if e is not None),
                    max_err_f32=errs["float32"], max_err_bf16=errs["bfloat16"],
@@ -1738,8 +2184,15 @@ def main(argv=None) -> int:
                    shape=t_main["shape"])
         if "device_gb_s" in t_main:
             rec["device_gb_s"] = t_main["device_gb_s"]
+        rec["launches_per_train_step"] = tr["launches"][name] // tr["steps"]
+        if name == "flash_attention_bwd":
+            rec["bf16_scaled_err"] = tr["errs"]["bwd_bf16"]["scaled"]
+            rec["bf16_rel_l2_err"] = tr["errs"]["bwd_bf16"]["rel_l2"]
+        if name == "flash_attention":
+            rec["lse_max_err_f32"] = tr["errs"]["lse"]["float32"]
+            rec["lse_max_err_bf16"] = tr["errs"]["lse"]["bfloat16"]
         for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate",
-                      "granite", "deepseek"):
+                      "granite", "deepseek", "gemma2", "mla"):
             if (name, label) in results["times"]:
                 t = results["times"][(name, label)]
                 rec[label] = {k: t[k] for k in keys + ("device_gb_s",)

@@ -48,6 +48,13 @@
 // out of reach) gets what the oracles give it: they mask with a finite
 // NEG_INF, so their softmax is uniform and the row is the mean of v over
 // all Sk keys.  The model's path never makes such a row.
+//
+// With a non-null `lse` both bodies also write each row's float32
+// log-sum-exp of the scaled, softcapped, masked scores in natural log,
+// laid out (B, Hq, Sq): the residual the backward (K1b,
+// flash_attention_bwd.cu) recomputes P from.  A row with no valid key
+// gets NEG_INF (-1e30), what the oracle's m + log(l) rounds to there.
+// The serving path passes null and writes nothing more.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -59,6 +66,7 @@ namespace {
 
 struct FlashParams {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;                   // (B, Hq, Sq) float32, or null: not written
   int B, Sq, Sk, Hq, Hkv, dh, dv;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float scale, softcap;         // softcap <= 0: none
@@ -85,6 +93,7 @@ constexpr int BM = 64;        // query rows per block
 constexpr int BN = 64;        // keys per tile
 constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
 constexpr int PLD = BN + 4;   // P row stride: rows 4 apart land 16 banks apart
+constexpr float NEG_INF = -1e30f;  // the oracles' finite mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -241,6 +250,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((int64_t)b * p.Hq + h) * p.Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : NEG_INF;
     if (l[i] == 0.f) {                     // no valid key: mean of v
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -287,6 +298,7 @@ cudaError_t dispatch_dv(const FlashParams& p, cudaStream_t stream) {
 constexpr int WG_BM = 64;     // query rows per block: one warpgroup
 constexpr int WG_NT = 128;    // threads: the warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -699,6 +711,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= p.Sq) continue;
     const float l = half ? l1 : l0;
     const float inv = l > 0.f ? 1.f / l : 0.f;
+    if (p.lse != nullptr && cq == 0)        // m is in the log2 domain
+      p.lse[((int64_t)b * p.Hq + h) * p.Sq + row] =
+          l > 0.f ? (half ? m1 : m0) * LN2 + logf(l) : NEG_INF;
 #pragma unroll
     for (int nb = 0; nb < DVT / 8; ++nb) {
       const int c = nb * 8 + cq;
@@ -800,9 +815,10 @@ extern "C" {
 // dtype: 0 float32 (scalar body), 1 bfloat16 (tensor-core body).  Strides
 // are in elements; for bfloat16, dh and dv are multiples of 8 and the
 // pointers and the strides of dimensions longer than 1 are 16-byte
-// aligned (the wrapper checks).  Returns the CUDA error of the launch (0
-// on success); the caller checks it.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// aligned (the wrapper checks).  `lse`: null, or a contiguous (B, Hq, Sq)
+// float32 buffer for the rows' log-sum-exp.  Returns the CUDA error of the
+// launch (0 on success); the caller checks it.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Sq, int Sk, int Hq, int Hkv, int dh, int dv,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -814,7 +830,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (dh % 8 || dv % 8)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  FlashParams p{q, k, v, o, B, Sq, Sk, Hq, Hkv, dh, dv,
+  FlashParams p{q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, dh, dv,
                 q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                 o_sb, o_ss, o_sh, scale, softcap, causal, window, q_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -11,6 +11,11 @@ The source holds one body per type: bfloat16 runs on the tensor cores
 tensor cores have no full-float32 mode.  The bfloat16 body reads its
 tensors through TMA maps, which need dh and dv to be multiples of 8 and
 16-byte aligned pointers and strides.
+
+With ``return_lse`` the kernel also writes each row's float32
+log-sum-exp, (B, Hq, Sq), the residual of the backward (K1b,
+``kernels/flash_attention_bwd.py``); the serving path passes a null
+pointer and the kernel writes nothing more.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ DESIGN = {
 DEVICE_KERNELS_PER_CALL = 1
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 12
+ARGTYPES = ([_P] * 5 + [_I] * 7 + [_L] * 12
             + [_F, _F, _I, _I, _I, _I, _P])
 
 
@@ -106,17 +111,21 @@ def check_inputs(q, k, v, window: Optional[int], q_offset: int) -> None:
 
 def launch(lib: ctypes.CDLL, q, k, v, *, causal: bool, window: Optional[int],
            softcap: Optional[float], scale: Optional[float],
-           q_offset: int) -> torch.Tensor:
-    """Run the kernel once; returns (B, Sq, Hq, dv) in q's type."""
+           q_offset: int, return_lse: bool = False):
+    """Run the kernel once; returns (B, Sq, Hq, dv) in q's type, and with
+    ``return_lse`` also the (B, Hq, Sq) float32 row log-sum-exp."""
     check_inputs(q, k, v, window, q_offset)
     B, Sq, Hq, dh = q.shape
     _, Sk, Hkv, dv = v.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, ENTRY)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, Hq, Hkv, dh, dv,
             *tma_strides(q), *tma_strides(k), *tma_strides(v),
             *out.stride()[:3],
@@ -126,4 +135,4 @@ def launch(lib: ctypes.CDLL, q, k, v, *, causal: bool, window: Optional[int],
         msg = getattr(lib, ERROR_STRING)(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"({err})")
-    return out
+    return (out, lse) if return_lse else out

@@ -10,6 +10,15 @@ Each kernel op routes by where its tensors lie:
 ``force_reference()`` sends CUDA tensors to the plain versions too; it
 exists for the card-side parity runs (``chip_smoke.py``) only.
 
+Gradients: attention is differentiable through ``FlashAttentionFunction``,
+a ``torch.autograd.Function`` whose forward is K1 (with its row
+log-sum-exp) and whose backward is K1b, or the plain versions of both for
+CPU tensors and under ``force_reference()``.  It is taken only when grad
+mode is on and an input requires grad; otherwise the call is the single
+K1 launch serving makes.  K2 and K3 have no backward kernel yet: on CUDA
+tensors that require grad they raise rather than hand back a tensor cut
+from the graph.
+
 Each op counts its kernel launches in a plain ``launches`` int, bumped
 where the kernel launches and nowhere else, so a run can show that the
 main path went through the kernels.
@@ -37,6 +46,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru_mod
 
@@ -45,8 +55,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # library name -> host module that declares and launches its entry point
-MODULES = {"flash_attention": _flash_mod, "decode_attention": _decode_mod,
-           "rglru_scan": _rglru_mod}
+MODULES = {"flash_attention": _flash_mod,
+           "flash_attention_bwd": _flash_bwd_mod,
+           "decode_attention": _decode_mod, "rglru_scan": _rglru_mod}
+# where a kernel without a backward names the work that adds it
+K3_BACKWARD_ITEM = "ROADMAP.md module item 6c (K3's backward)"
 
 
 def _nvcc() -> str:
@@ -184,21 +197,84 @@ class KernelOp:
             self.launches += 1
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with the reference's flash VJP: the forward saves q, k,
+    v, the output and the float32 row log-sum-exp; the backward recomputes
+    the probabilities from them (``layers._flash_bwd_rule``).  Which side
+    runs (kernels, or plain versions for CPU tensors and under
+    ``force_reference()``) is decided once, in the forward, and the
+    backward follows it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  scale=scale, q_offset=q_offset)
+        ctx.kw = kw
+        ctx.reference = not _on_cuda(q, k, v) or reference_forced()
+        if ctx.reference:
+            out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        else:
+            out, lse = flash_attention.launch_kernel(q, k, v, return_lse=True,
+                                                     **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.reference:
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                **ctx.kw)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
 class FlashAttentionOp(KernelOp):
     def __call__(self, q, k, v, *, causal: bool = True,
                  window: Optional[int] = None,
                  softcap: Optional[float] = None,
                  scale: Optional[float] = None,
                  q_offset: int = 0) -> torch.Tensor:
+        if _needs_grad(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                softcap, scale, q_offset)
         if not _on_cuda(q, k, v) or reference_forced():
             return ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window, softcap=softcap,
                 scale=scale, q_offset=q_offset)
-        out = _flash_mod.launch(
-            self.library.get(self.name), q, k, v, causal=causal,
-            window=window, softcap=softcap, scale=scale, q_offset=q_offset)
+        return self.launch_kernel(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset)
+
+    def launch_kernel(self, q, k, v, *, return_lse: bool = False, **kw):
+        """K1 once on CUDA tensors, counted; raises if it cannot run."""
+        out = _flash_mod.launch(self.library.get(self.name), q, k, v,
+                                return_lse=return_lse, **kw)
         self._counted()
         return out
+
+
+class FlashAttentionBwdOp(KernelOp):
+    """K1b: (dq, dk, dv) of attention from the forward's residuals.  It
+    does no routing: ``FlashAttentionFunction`` picks the side once, in
+    its forward, and calls this only for the kernel."""
+
+    def __call__(self, q, k, v, out, lse, do, *, causal: bool = True,
+                 window: Optional[int] = None,
+                 softcap: Optional[float] = None,
+                 scale: Optional[float] = None, q_offset: int = 0):
+        """K1b once on CUDA tensors, counted; raises if it cannot run."""
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  scale=scale, q_offset=q_offset)
+        grads = _flash_bwd_mod.launch(self.library.get(self.name), q, k, v,
+                                      out, lse, do, **kw)
+        self._counted()
+        return grads
 
 
 class DecodeAttentionOp(KernelOp):
@@ -210,6 +286,11 @@ class DecodeAttentionOp(KernelOp):
             return ref.decode_attention_ref(
                 q, k_cache, v_cache, pos, window=window, softcap=softcap,
                 scale=scale)
+        if _needs_grad(q, k_cache, v_cache):
+            raise NotImplementedError(
+                "decode_attention (K2) has no backward: the reference never "
+                "differentiates a decode step, and training runs prefill "
+                "attention (K1/K1b)")
         out = _decode_mod.launch(
             self.library.get(self.name), q, k_cache, v_cache, pos,
             window=window, softcap=softcap, scale=scale)
@@ -222,15 +303,22 @@ class RGLRUScanOp(KernelOp):
         tensors = (a, b) if h0 is None else (a, b, h0)
         if not _on_cuda(*tensors) or reference_forced():
             return ref.rglru_scan_ref(a, b, h0)
+        if _needs_grad(*tensors):
+            raise NotImplementedError(
+                "rglru_scan (K3) has no backward kernel yet, so a CUDA "
+                "RG-LRU model cannot train on the card: "
+                f"{K3_BACKWARD_ITEM}")
         out = _rglru_mod.launch(self.library.get(self.name), a, b, h0)
         self._counted()
         return out
 
 
 flash_attention = FlashAttentionOp("flash_attention", LIBRARY)
+flash_attention_bwd = FlashAttentionBwdOp("flash_attention_bwd", LIBRARY)
 decode_attention = DecodeAttentionOp("decode_attention", LIBRARY)
 rglru_scan = RGLRUScanOp("rglru_scan", LIBRARY)
-KERNELS = (flash_attention, decode_attention, rglru_scan)
+KERNELS = (flash_attention, flash_attention_bwd, decode_attention,
+           rglru_scan)
 
 
 def reset_launches() -> None:

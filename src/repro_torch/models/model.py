@@ -1,13 +1,13 @@
-"""Top-level model API of the port: init / prefill / decode_step
-(``repro/models/model.py``).
+"""Top-level model API of the port: init / loss / prefill / decode_step
+/ input_specs (``repro/models/model.py``).
 
 A ``Model`` interprets a ``ModelConfig``.  Its entry points are plain
 functions of (params, inputs); params are a dict tree that mirrors the
 reference's pytree, so the freshen plan can fetch weights and the
 "executable" separately and swap a new weight version in without
-rebuilding anything.  ``loss``, training and ``input_specs`` are later
-slices (ROADMAP.md module item 6); so are the vision/audio frontend
-embeddings of pixtral and musicgen.
+rebuilding anything.  Under autograd the forward rematerialises its
+segments as the reference's does (``cfg.remat``), and ``loss`` recomputes
+each chunk's logits in the backward instead of keeping them.
 """
 from __future__ import annotations
 
@@ -16,14 +16,15 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.io import tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (ParamFactory, dense_init,
                                       init_rmsnorm, rmsnorm_apply)
-from repro_torch.specs import tensors_like_specs
+from repro_torch.specs import TensorSpec, tensors_like_specs
 
 
 def _softcap(x, cap):
@@ -69,12 +70,19 @@ class Model:
         return params
 
     # ------------------------------------------------------------------
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, frontend_embeds=None,
+               frontend_mask=None):
+        """Token embeddings; where ``frontend_mask`` (B, S) is set, the
+        vision/audio frontend's ``frontend_embeds`` (B, S, d_model) take
+        their place."""
         cfg = self.cfg
         x = F.embedding(tokens, params["embed"])
         if cfg.scale_embedding:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
+        if frontend_embeds is not None:
+            x = torch.where(frontend_mask[..., None],
+                            frontend_embeds.to(x.dtype), x)
         return x
 
     def _logits(self, params, x):
@@ -85,20 +93,57 @@ class Model:
         return _softcap(logits, cfg.final_softcap)
 
     # ------------------------------------------------------------------
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, frontend_embeds=None,
+                frontend_mask=None):
         """Full-sequence forward to hidden states; returns (x, aux), aux
         the MoE load-balance loss summed over layers as a float32 scalar
-        tensor on the model's device (zero without MoE layers)."""
+        tensor on the model's device (zero without MoE layers).  Under
+        autograd with ``cfg.remat`` the segments are rematerialised."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, frontend_embeds, frontend_mask)
         aux = 0.0
         for i, (pattern, repeats) in enumerate(cfg.segments):
             x, _, a = transformer.segment_apply(
-                pattern, repeats, cfg, params[f"seg{i}"], x)
+                pattern, repeats, cfg, params[f"seg{i}"], x,
+                remat=cfg.remat)
             aux = aux + a
         if not torch.is_tensor(aux):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
+
+    def loss(self, params, batch, seq_chunk: int = 512):
+        """Next-token cross-entropy in float32, chunked over the sequence:
+        under autograd each chunk's (B, chunk, vocab) logits are recomputed
+        in the backward (``torch.utils.checkpoint``) instead of kept.
+        ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
+        model's device, and optionally ``frontend_embeds`` /
+        ``frontend_mask``.  Returns (xent + aux, {"xent", "aux"})."""
+        x, aux = self.forward(params, batch["tokens"],
+                              batch.get("frontend_embeds"),
+                              batch.get("frontend_mask"))
+        targets = batch["targets"]
+        B, S = targets.shape
+        seq_chunk = min(seq_chunk, S)
+        if S % seq_chunk:
+            raise ValueError(f"sequence length {S} is not a multiple of "
+                             f"seq_chunk {seq_chunk}")
+
+        def chunk_xent(xb, tb):
+            logits = self._logits(params, xb).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, tb.long()[..., None])[..., 0]
+            return torch.sum(logz - gold)
+
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, seq_chunk):
+            xb, tb = x[:, c0:c0 + seq_chunk], targets[:, c0:c0 + seq_chunk]
+            if torch.is_grad_enabled():
+                total = total + checkpoint(chunk_xent, xb, tb,
+                                           use_reentrant=False)
+            else:
+                total = total + chunk_xent(xb, tb)
+        loss = total / (B * S)
+        return loss + aux, {"xent": loss, "aux": aux}
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int) -> tuple:
@@ -127,7 +172,7 @@ class Model:
                                   self.device)
 
     def prefill(self, params, tokens, max_len: Optional[int] = None,
-                cache=None):
+                cache=None, frontend_embeds=None, frontend_mask=None):
         """Run the prompt; returns (last-token logits, decode cache).
 
         ``cache``: a preallocated :meth:`init_cache` buffer to seed in
@@ -137,7 +182,7 @@ class Model:
         max_len = max_len or S
         if cache is None:
             cache = self.init_cache(B, max_len)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, frontend_embeds, frontend_mask)
         for i, (pattern, repeats) in enumerate(cfg.segments):
             x, _, _ = transformer.segment_apply(
                 pattern, repeats, cfg, params[f"seg{i}"], x,
@@ -156,6 +201,30 @@ class Model:
                 seg_caches=cache[i], pos=pos, decode=True)
         logits = self._logits(params, x)
         return logits, cache
+
+    # ------------------------------------------------------------------
+    def input_specs(self, shape: InputShape) -> dict:
+        """``TensorSpec`` stand-ins for every input of the step that
+        ``shape.mode`` names: ``train`` (tokens, targets), ``prefill``
+        (tokens), both with the frontend's embeddings and mask where the
+        config has a frontend, or ``decode`` (token, pos, cache)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.mode in ("train", "prefill"):
+            batch = {"tokens": TensorSpec((B, S), i32)}
+            if shape.mode == "train":
+                batch["targets"] = TensorSpec((B, S), i32)
+            if cfg.frontend != "none":
+                batch["frontend_embeds"] = TensorSpec(
+                    (B, S, cfg.d_model), getattr(torch, cfg.dtype))
+                batch["frontend_mask"] = TensorSpec((B, S), torch.bool)
+            return batch
+        if shape.mode == "decode":
+            return {"token": TensorSpec((B, 1), i32),
+                    "pos": TensorSpec((B,), i32),
+                    "cache": self.cache_specs(B, S)}
+        raise ValueError(shape.mode)
 
 
 def make_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:

@@ -93,6 +93,19 @@ def record_routing():
         _recording.rec = prev
 
 
+@contextlib.contextmanager
+def recording_paused():
+    """Record no ``moe_apply`` call on this thread inside the block: a
+    checkpointed segment's recomputation (``transformer._remat``) runs
+    each forward a second time."""
+    prev = getattr(_recording, "rec", None)
+    _recording.rec = None
+    try:
+        yield
+    finally:
+        _recording.rec = prev
+
+
 def _recorder():
     return getattr(_recording, "rec", None)
 
@@ -211,12 +224,15 @@ def moe_apply(p, x, cfg):
                               dim=2)
     rec = _recorder()
     if rec is not None:
-        top = torch.topk(gates, min(k + 1, E), dim=-1).values
-        margins = (top[:, k - 1] - top[:, k]) if k < E else \
-            torch.full((T,), float("inf"), device=x.device)
-        rec.calls.append(dict(idx=idx, margins=margins,
-                              dropped=(~keep).sum(), assignments=T * k,
-                              capacity=C, groups=G))
+        # outside autograd: a recorded forward saves for the backward just
+        # what an unrecorded one (a checkpoint's recomputation) saves
+        with torch.no_grad():
+            top = torch.topk(gates, min(k + 1, E), dim=-1).values
+            margins = (top[:, k - 1] - top[:, k]) if k < E else \
+                torch.full((T,), float("inf"), device=x.device)
+            rec.calls.append(dict(idx=idx, margins=margins,
+                                  dropped=(~keep).sum(), assignments=T * k,
+                                  capacity=C, groups=G))
     out = out2d.reshape(B, S, d)
     if e.n_shared:
         out = out + mlp_apply(p["shared"], x, cfg.activation)

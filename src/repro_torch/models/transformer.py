@@ -10,6 +10,10 @@ dense MLP, ``mla_moe`` with the MoE FFN), the RG-LRU block (``rglru``)
 and the xLSTM blocks (``mlstm``, ``slstm``, which carry their own up and
 down projections and have no FFN): every kind the reference has.
 
+Training (``segment_apply(..., remat=True)`` under autograd) mirrors the
+reference's two-level sqrt(R) rematerialisation with
+``torch.utils.checkpoint``.
+
 Decode caches are preallocated buffers written in place: attention
 writes its token's K/V into its slot, MLA its token's latents, and the
 recurrent blocks' new states (RG-LRU ``h``/``conv``, mLSTM
@@ -19,6 +23,7 @@ into their buffers.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.io import tree_map
 from repro_torch.models import layers, mla, moe, rglru, xlstm
@@ -192,23 +197,74 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def layer_params(seg_params, r: int) -> tuple:
-    """Views of repeat ``r`` of a stacked segment."""
-    return tuple(tree_map(lambda t: t[r], blk) for blk in seg_params)
+def unbind_repeats(seg_params, repeats: int) -> list:
+    """Every repeat's views of a stacked segment, from one ``unbind`` per
+    leaf.  Under autograd an index ``t[r]`` per repeat would make its
+    backward allocate a zero gradient of the whole ``(repeats, ...)``
+    stack, once per repeat; ``unbind``'s backward stacks the repeats'
+    gradients once."""
+    per_leaf = [tree_map(lambda t: torch.unbind(t), blk) for blk in seg_params]
+
+    def pick(tree, r):
+        if isinstance(tree, dict):
+            return {k: pick(v, r) for k, v in tree.items()}
+        return tree[r]
+    return [tuple(pick(blk, r) for blk in per_leaf) for r in range(repeats)]
+
+
+def _sqrt_divisor(n: int) -> int:
+    """Largest divisor of n not exceeding sqrt(n)+1 (for 2-level remat)."""
+    best = 1
+    d = 1
+    while d * d <= n + 1:
+        if n % d == 0:
+            best = d
+        d += 1
+    return best
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped and recomputed in the backward.  Every run
+    after the first is a recomputation, during which ``moe.record_routing``
+    records nothing, so each forward's routing is recorded once."""
+    state = {"runs": 0}
+
+    def run(*a):
+        state["runs"] += 1
+        if state["runs"] == 1:
+            return fn(*a)
+        with moe.recording_paused():
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
-                  seg_caches=None, pos=None, decode=False):
+                  seg_caches=None, pos=None, decode=False,
+                  remat: bool = False):
     """Run ``repeats`` stacked super-blocks.  Returns (x, seg_caches, aux).
 
     With ``seg_caches`` (stacked ``(repeats, ...)`` buffers) the caches
     are written in place: in decode each layer writes its token's K/V or
     its new recurrent state; in prefill each layer's K/V, latents or
     final state seed its slice as soon as they are made.  ``aux`` sums
-    the MoE layers' load-balance losses (0.0 when there are none)."""
+    the MoE layers' load-balance losses (0.0 when there are none).
+
+    ``remat`` (no caches, grad mode on) is the reference's two-level
+    sqrt(R) checkpointing (``segment_scan``): with ``repeats >= 4`` and
+    ``k = _sqrt_divisor(repeats) > 1``, a checkpoint around each group of
+    k super-blocks and one around each super-block inside it, so the
+    backward keeps R/k group boundaries and recomputes within a group;
+    otherwise a checkpoint around each super-block.  The repeats' params
+    are taken with :func:`unbind_repeats`."""
+    per_repeat = unbind_repeats(seg_params, repeats)
+    if seg_caches is None and not decode:
+        if remat and torch.is_grad_enabled():
+            return _segment_remat(pattern, repeats, cfg, per_repeat, x)
+        x, aux = _superblocks(pattern, cfg, per_repeat, x)
+        return x, None, aux
     aux = 0.0
-    for r in range(repeats):
-        params_r = layer_params(seg_params, r)
+    for r, params_r in enumerate(per_repeat):
         for j, kind in enumerate(pattern):
             cache_rj = None
             if seg_caches is not None:
@@ -218,7 +274,46 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
                                       cache=cache_rj, pos=pos, decode=True)
             else:
                 x, seed, a = block_apply(kind, cfg, params_r[j], x)
-                if cache_rj is not None:
-                    seed_block_cache(kind, cfg, cache_rj, seed, x.shape[1])
+                seed_block_cache(kind, cfg, cache_rj, seed, x.shape[1])
             aux = aux + a
     return x, seg_caches, aux
+
+
+def _superblock(pattern, cfg, params_r, x):
+    """One super-block (each kind of ``pattern`` once) with no caches;
+    returns (x, aux)."""
+    aux = 0.0
+    for j, kind in enumerate(pattern):
+        x, _, a = block_apply(kind, cfg, params_r[j], x)
+        aux = aux + a
+    return x, aux
+
+
+def _superblocks(pattern, cfg, params_rs, x):
+    aux = 0.0
+    for params_r in params_rs:
+        x, a = _superblock(pattern, cfg, params_r, x)
+        aux = aux + a
+    return x, aux
+
+
+def _remat_each(pattern, cfg, params_rs, x):
+    """The super-blocks of ``params_rs`` in order from ``x``, each under
+    its own checkpoint; returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for params_r in params_rs:
+        x, a = _remat(_superblock, pattern, cfg, params_r, x)
+        aux = aux + a
+    return x, aux
+
+
+def _segment_remat(pattern, repeats: int, cfg, per_repeat, x):
+    k = _sqrt_divisor(repeats) if repeats >= 4 else 1
+    if k == 1:
+        x, aux = _remat_each(pattern, cfg, per_repeat, x)
+        return x, None, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g0 in range(0, repeats, k):
+        x, a = _remat(_remat_each, pattern, cfg, per_repeat[g0:g0 + k], x)
+        aux = aux + a
+    return x, None, aux

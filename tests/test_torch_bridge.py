@@ -39,7 +39,7 @@ COPIES = sorted(
     + [f"workloads/{m}.py" for m in ("__init__", "adapt", "history",
                                      "replay", "trace")]
     + ["serving/batching.py", "serving/datastore.py",
-       "cluster/accounting.py"]
+       "cluster/accounting.py", "data/__init__.py", "data/pipeline.py"]
     + [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")])
 
 
@@ -113,6 +113,28 @@ print(len(names))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 30
+
+
+@pytest.mark.parametrize("module", ["repro_torch.train",
+                                    "repro_torch.train.trainer",
+                                    "repro_torch.data",
+                                    "repro_torch.launch.train"])
+def test_training_modules_import_without_jax_or_reference(module):
+    """The training entry points stand alone: with ``jax``, ``ml_dtypes``
+    and ``repro`` blocked they import, and pull in nothing of either."""
+    code = f"""
+import importlib, sys
+for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+    sys.modules[name] = None
+sys.path.insert(0, {str(SRC)!r})
+importlib.import_module({module!r})
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("rel", COPIES)
