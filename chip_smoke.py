@@ -10,8 +10,9 @@ Phases, each of which raises on failure (exit code 1):
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
    with nvcc into the ignored ``build/kernels/`` and time the build; echo
    each kernel's registers and spills (the bf16 tensor-core
-   instantiations of K1 must not spill), K1's shared memory per block,
-   and K3's plan (tiles, ring stages, shared memory) at its timed shapes;
+   instantiations of K1 must not spill, nor K1b's at dh 64), K1's and
+   K1b's shared memory per block, and K3's plan (tiles, ring stages,
+   shared memory) at its timed shapes;
 3. parity: each kernel against its plain PyTorch version on the card, on
    the cases of ``tests/test_kernels.py``, both served models' shapes,
    rows that see no key, and the edges of the new designs (K1's bf16
@@ -81,8 +82,10 @@ Phases, each of which raises on failure (exit code 1):
    qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
    at dh 128, MLA's dh 192 / dv 128 and recurrentgemma's dh 256 at G 10
    with window 2048, and at the edges (ragged S, Sq < Sk with q_offset,
-   non-causal, dv > dh, a do with a strided head dimension); K2 and K3
-   raising NotImplementedError on CUDA tensors that require grad; a
+   non-causal, dv > dh, a do with a strided head dimension), each case
+   launched twice (bit for bit the same) and profiled once to show that
+   bfloat16 ran K1b's tensor-core body and float32 its scalar one; K2
+   and K3 raising NotImplementedError on CUDA tensors that require grad; a
    float32 gate on qwen2-0.5b at full width cut to 2 layers (loss and
    every gradient leaf within 1e-4 of ``force_reference``, then 5
    ``Trainer`` steps on each path, losses within 1e-4 relative); then
@@ -90,7 +93,8 @@ Phases, each of which raises on failure (exit code 1):
    x 1024 from ``packed_batches`` in 2 microbatches: finite losses that
    fall, its own launch-count window (per step 132 K1, 48 K1b), step ms,
    tokens/s, peak memory, and one profiled step (device idle share, K1b's
-   and K1's shares of device time; trace in ``build/profile/train``);
+   and K1's shares of device time, K1b by device kernel, which must be
+   the tensor-core body's; trace in ``build/profile/train``);
 10. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
@@ -152,6 +156,10 @@ KERNEL_META = {
 
 # the kernels the served paths launch (K1b runs only in training)
 SERVING_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+# K1b's device kernels by body: bf16 runs the tensor-core ones, float32
+# the scalar ones (with bwd_delta and bwd_reduce for both)
+K1B_WGMMA = re.compile(r"flash_bwd_(dkdv|dq)_wgmma_kernel")
+K1B_SCALAR = re.compile(r"flash_bwd_(dkdv|dq)_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -190,7 +198,7 @@ def phase_build(torch, ops):
     wall = time.perf_counter() - t0
     log(f"build: {wall:.2f} s wall, nvcc built {ops.LIBRARY.built or 'none'} "
         f"into {ops.LIBRARY.build_dir.relative_to(ROOT)}")
-    name, spills = "?", {}
+    name, spills, regs = "?", {}, {}
     for line in ops.LIBRARY.build_log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -203,9 +211,21 @@ def phase_build(torch, ops):
                           line)
             if m:
                 spills[name] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[name] = int(m.group(1))
     bf16 = {k: v for k, v in spills.items() if k.startswith("flash_wgmma")}
     check(len(bf16) > 0 and not any(bf16.values()),
           f"the bf16 flash instantiations spill: {bf16}")
+    # K1b's bf16 body: every instantiation logged; none may spill at dh 64
+    # (qwen2's training shape), as K1's may not anywhere
+    k1b = {k: v for k, v in spills.items() if K1B_WGMMA.match(k)}
+    for k in sorted(k1b):
+        log(f"  K1b bf16 {k}: {regs.get(k, '?')} registers, {k1b[k]} bytes "
+            f"of spills")
+    at64 = {k: v for k, v in k1b.items() if "<64," in k}
+    check(len(at64) == 2 and not any(at64.values()),
+          f"K1b's bf16 instantiations at dh 64 spill: {at64}")
     from repro_torch.kernels import flash_attention as fa
     smem = getattr(ops.LIBRARY.get("flash_attention"), fa.SMEM_BYTES)
     for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
@@ -214,10 +234,12 @@ def phase_build(torch, ops):
     from repro_torch.kernels import flash_attention_bwd as fb
     bwd_smem = getattr(ops.LIBRARY.get("flash_attention_bwd"), fb.SMEM_BYTES)
     for dh, dv in ((64, 64), (128, 128), (192, 128), (256, 256)):
-        dkdv, dq = bwd_smem(dh, dv, 0), bwd_smem(dh, dv, 1)
-        check(max(dkdv, dq) <= 232448, f"K1b at dh {dh}, dv {dv} asks for "
-              f"{max(dkdv, dq)} bytes of shared memory")
-        log(f"  K1b at dh {dh}, dv {dv}: dkdv {dkdv}, dq {dq} bytes of "
+        # which: float32 body's dkdv 0, dq 1; bf16 body's dkdv 2, dq 3
+        sizes = [bwd_smem(dh, dv, which) for which in range(4)]
+        check(max(sizes) <= 232448, f"K1b at dh {dh}, dv {dv} asks for "
+              f"{max(sizes)} bytes of shared memory")
+        log(f"  K1b at dh {dh}, dv {dv}: float32 dkdv {sizes[0]}, dq "
+            f"{sizes[1]}; bf16 dkdv {sizes[2]}, dq {sizes[3]} bytes of "
             f"dynamic shared memory per block")
     from repro_torch.kernels import rglru_scan as k3
     k3_smem = getattr(ops.LIBRARY.get("rglru_scan"), k3.SMEM_BYTES)
@@ -1578,12 +1600,74 @@ def _bf16_grad_errs(torch, got, want, want32):
     return scaled, excess, rel_l2
 
 
+def _k1b_body_of(name):
+    """(the body a K1b launch in type ``name`` must run, the other)."""
+    return ("wgmma", "scalar") if name == "bfloat16" else ("scalar", "wgmma")
+
+
+def k1b_bodies_child() -> int:
+    """Run in a fresh process by ``k1b_bodies``: K1b on each
+    ``BWD_CASES`` row and type under the profiler, until a session shows
+    both of its body's kernels (dkdv and dq) and none of the other's, at
+    most 3 sessions, each launch behind a spin of about 10 ms.  Prints
+    {"case/type": {"bodies": {...}, "sessions": n}} as its last line.
+    A fresh process, because short sessions that follow other profiler
+    passes in the same process lose device events (all of them, after
+    the served phases' passes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    out = {}
+    for case in BWD_CASES:
+        for name in case[-1]:
+            q, k, v, do, kw = _bwd_inputs(torch, gen, case,
+                                          getattr(torch, name))
+            o, lse = ops.flash_attention.launch_kernel(q, k, v,
+                                                       return_lse=True, **kw)
+            body, other = _k1b_body_of(name)
+            for n in range(1, 4):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda._sleep(20_000_000)
+                    ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                    torch.cuda.synchronize()
+                names = {e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA}
+                bodies = {b: sorted({m.group(0) for x in names
+                                     for m in [pat.search(x)] if m})
+                          for b, pat in (("wgmma", K1B_WGMMA),
+                                         ("scalar", K1B_SCALAR))}
+                if len(bodies[body]) == 2 and not bodies[other]:
+                    break
+            out[f"{case[0]}/{name}"] = dict(bodies=bodies, sessions=n)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def k1b_bodies(timeout=600):
+    """``k1b_bodies_child`` in a fresh process: the device kernels each
+    K1b case ran, by body."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; sys.exit(chip_smoke.k1b_bodies_child())")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=timeout)
+    check(res.returncode == 0, f"the K1b body check failed: {res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def train_parity(torch, ops, ref):
     """K1's row log-sum-exp and K1b's (dq, dk, dv) against their plain
     versions on the same inputs (K1b and its plain version both get K1's
     output and lse), at the TOL of each type, TF32 off; K1b's bfloat16
-    gradients also against their float32 gradients (``_bf16_grad_errs``)."""
+    gradients also against their float32 gradients (``_bf16_grad_errs``).
+    K1b runs twice on each case's inputs, and the two results must be bit
+    for bit the same; under the profiler (``k1b_bodies``, a fresh
+    process), its device kernels must be the tensor-core body's for
+    bfloat16 and the scalar body's for float32."""
     _no_tf32(torch)
+    ran = k1b_bodies()
     gen = torch.Generator(device="cuda").manual_seed(4321)
     errs = {"lse": {n: 0.0 for n in BOTH},
             "flash_attention_bwd": {n: 0.0 for n in BOTH}}
@@ -1609,6 +1693,15 @@ def train_parity(torch, ops, ref):
             check(ok, f"K1 (with lse) {name} case {case[0]}: max abs err {e}")
             got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             torch.cuda.synchronize()
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K1b {name} case {case[0]}: a second launch on the same "
+                  f"inputs gave other gradients")
+            body, other = _k1b_body_of(name)
+            bodies = ran[f"{case[0]}/{name}"]["bodies"]
+            check(len(bodies[body]) == 2 and not bodies[other],
+                  f"K1b {name} case {case[0]} ran {bodies} under the "
+                  f"profiler, not the {body} body's dkdv and dq")
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
             want32 = (ref.flash_attention_bwd_ref(
                 q.float(), k.float(), v.float(), out.float(), lse,
@@ -1637,7 +1730,9 @@ def train_parity(torch, ops, ref):
                       f"an ulp plus the float32 tolerance)")
             n += 1
             log(f"train parity {case[0]} {name}: lse and dq/dk/dv within "
-                f"tolerance")
+                f"tolerance; 2 launches bit for bit; K1b ran "
+                f"{', '.join(bodies[body])} (profiled session "
+                f"{ran[f'{case[0]}/{name}']['sessions']})")
     log(f"train parity: K1 lse max abs err f32 {errs['lse']['float32']:.3e} "
         f"bf16 {errs['lse']['bfloat16']:.3e}; K1b max abs err f32 "
         f"{errs['flash_attention_bwd']['float32']:.3e} bf16 "
@@ -1824,19 +1919,33 @@ def train_full(torch, np, ops, trace_dir):
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    k1b = sum(us for n, us in by_name.items()
-              if re.search(r"(flash_bwd_\w+|bwd_delta|bwd_reduce)_kernel", n))
+    # K1b: both bodies' dkdv and dq kernels, and the delta and reduce
+    # kernels they share; the bf16 step must have run the tensor-core body
+    k1b_by = {}
+    for n, us in by_name.items():
+        m = K1B_WGMMA.search(n) or K1B_SCALAR.search(n) or re.search(
+            r"bwd_(delta|reduce)_kernel", n)
+        if m:
+            k1b_by[m.group(0)] = k1b_by.get(m.group(0), 0.0) + us
+    check(sum(1 for n in k1b_by if K1B_WGMMA.match(n)) == 2
+          and not any(K1B_SCALAR.match(n) for n in k1b_by),
+          f"the bf16 training step ran K1b's {sorted(k1b_by)}, not the "
+          f"tensor-core body")
+    k1b = sum(k1b_by.values())
     k1 = sum(us for n, us in by_name.items()
              if re.search(r"flash_(fwd|wgmma)_kernel", n))
     res.update(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                device_events=len(kern), idle_share=1 - busy / wall_us,
                k1b_ms=k1b / 1e3, k1b_share=k1b / busy, k1_ms=k1 / 1e3,
-               k1_share=k1 / busy)
+               k1_share=k1 / busy,
+               k1b_kernels_ms={n: us / 1e3 for n, us in k1b_by.items()})
     log(f"train profile (one step): wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.2f} ms in {len(kern)} device events, idle share "
         f"{res['idle_share']:.3f}; K1b {k1b / 1e3:.2f} ms "
         f"({res['k1b_share']:.1%} of device time), K1 {k1 / 1e3:.2f} ms "
-        f"({res['k1_share']:.1%})")
+        f"({res['k1_share']:.1%}); K1b by kernel "
+        + ", ".join(f"{n} {us / 1e3:.2f} ms" for n, us in
+                    sorted(k1b_by.items(), key=lambda kv: -kv[1])))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"train profile top: {us / 1e3:8.3f} ms ({us / busy:.1%})  "
             f"{name[:90]}")

@@ -77,6 +77,13 @@ def tma_strides(t: torch.Tensor) -> tuple:
                  for st, n, nat in zip(t.stride()[:3], (B, S, H), natural))
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """True if a bfloat16 body's TMA maps can read ``t`` as it lies:
+    16-byte aligned pointer and strides."""
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in tma_strides(t))
+
+
 def check_inputs(q, k, v, window: Optional[int], q_offset: int) -> None:
     """Raise on what the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -99,10 +106,9 @@ def check_inputs(q, k, v, window: Optional[int], q_offset: int) -> None:
     if q.dtype == torch.bfloat16:
         if Sk < 1:
             raise ValueError("bfloat16 attention needs at least one key")
-        for t in (q, k, v):
-            if t.data_ptr() % 16 or any(st * 2 % 16 for st in tma_strides(t)):
-                raise ValueError("bfloat16 q/k/v need 16-byte aligned "
-                                 "pointers and strides (TMA)")
+        if not all(tma_ready(t) for t in (q, k, v)):
+            raise ValueError("bfloat16 q/k/v need 16-byte aligned "
+                             "pointers and strides (TMA)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q_offset < 0:

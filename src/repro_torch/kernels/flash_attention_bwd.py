@@ -9,12 +9,29 @@ tensors that lie on the card; ``kernels/ops.py`` builds the library,
 counts launches and wires it into autograd.  Its plain version is
 ``kernels/ref.py:flash_attention_bwd_ref``.
 
-Every product runs in float32 on the CUDA cores, for bfloat16 inputs
-too, as the reference's backward casts everything to float32.  One call
-is four device kernels: the row sums D = rowsum(do * o), dk and dv per
-(key tile, query head) into a float32 scratch, their sum over each KV
-head's query heads, and dq per query tile; no atomics, so the result is
-the same from run to run.
+The reference casts q, k, v, o and do to float32 and takes every product
+in float32; both bodies keep that arithmetic, and the inputs' type picks
+the body (one per type, no fallback):
+
+* bfloat16 runs on the tensor cores (``wgmma``, TMA rings).  S = q k^T
+  and dP = do v^T take the bf16 inputs as operands, whose products are
+  exact in float32.  For dv = P^T do, dk = scale dS^T q and dq = scale dS
+  k, each float32 value of P and dS is split into three bf16 terms (hi,
+  mid, lo: their sum is the value exactly) and each term is a register
+  operand of its own product into one float32 accumulator, so the
+  products are again the reference's; only the order of the sums
+  differs.  That is 13 product passes where the function needs 5 (dkdv 8
+  up to dh 64 and 9 beyond, where dk and dv take a block each; dq 5), so
+  the design can reach at most 5/13 of the bf16 bound.  Head dims are
+  tiled to 64/128/192/256; TMA needs dh and dv multiples of 8 and
+  16-byte aligned pointers and strides.
+* float32 runs on the CUDA cores, scalar FMA, bound by the 67 TFLOP/s
+  float32 rate.
+
+One call is four device kernels either way: the row sums D = rowsum(do *
+o), dk and dv per (key tile, query head) into a float32 scratch, their
+sum over each KV head's query heads, and dq per query tile; no atomics,
+so the result is the same from run to run.
 """
 from __future__ import annotations
 
@@ -32,9 +49,11 @@ ERROR_STRING = "flash_attention_bwd_error_string"
 SMEM_BYTES = "flash_attention_bwd_smem_bytes"
 DTYPE_CODES = _fwd.DTYPE_CODES
 DESIGN = {
-    "bfloat16": ("scalar float32 FMA on the CUDA cores (the reference's "
-                 "backward is float32); dk/dv per (key tile, query head) "
-                 "into a float32 scratch summed over G, dq per query tile"),
+    "bfloat16": ("wgmma m64n64k16 on the tensor cores, TMA rings; S and dP "
+                 "on the bf16 inputs, P and dS split into 3 bf16 terms for "
+                 "dv, dk, dq (float32-exact products, 13 passes for 5); "
+                 "dk/dv per (key tile, query head) into a float32 scratch "
+                 "summed over G, dq per query tile"),
     "float32": ("scalar float32 FMA on the CUDA cores; dk/dv per (key tile, "
                 "query head) into a float32 scratch summed over G, dq per "
                 "query tile"),
@@ -63,7 +82,8 @@ def check_inputs(q, k, v, out, lse, do, window: Optional[int],
     """Raise on what the kernel does not take: K1's rules on q, k, v
     (shapes, types, head dims, one CUDA device, a contiguous head
     dimension), and out / do shaped (B, Sq, Hq, dv) in q's type with a
-    contiguous head dimension, lse a contiguous (B, Hq, Sq) float32."""
+    contiguous head dimension, lse a contiguous (B, Hq, Sq) float32; for
+    bfloat16 also Sq, Sk >= 1 and q, k, v, do readable by TMA."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
     B, Sq, Hq, dh = q.shape
@@ -91,6 +111,13 @@ def check_inputs(q, k, v, out, lse, do, window: Optional[int],
         raise ValueError("q, k, v, out, lse, do must lie on one CUDA device")
     if any(t.stride(-1) != 1 for t in (q, k, v, out, do)):
         raise ValueError("the head dimension must be contiguous")
+    if q.dtype == torch.bfloat16:
+        if Sq < 1 or Sk < 1:
+            raise ValueError("the bfloat16 backward needs at least one query "
+                             "and one key")
+        if not all(_fwd.tma_ready(t) for t in (q, k, v, do)):
+            raise ValueError("bfloat16 q/k/v/do need 16-byte aligned "
+                             "pointers and strides (TMA)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q_offset < 0:
@@ -101,10 +128,12 @@ def launch(lib: ctypes.CDLL, q, k, v, out, lse, do, *, causal: bool,
            window: Optional[int], softcap: Optional[float],
            scale: Optional[float], q_offset: int):
     """Run the kernels once; returns (dq, dk, dv) in q's type."""
-    if do.stride(-1) != 1:
-        # the kernel reads each row's head dimension contiguously: the one
-        # copy it needs, made here and nowhere else
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _fwd.tma_ready(do)):
+        # the kernels read each row's head dimension contiguously, and the
+        # bf16 body through TMA: the one copy they need, made here and
+        # nowhere else
+        do = do.clone(memory_format=torch.contiguous_format)
     check_inputs(q, k, v, out, lse, do, window, q_offset)
     B, Sq, Hq, dh = q.shape
     _, Sk, Hkv, dv = v.shape
@@ -122,8 +151,9 @@ def launch(lib: ctypes.CDLL, q, k, v, out, lse, do, *, causal: bool,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             B, Sq, Sk, Hq, Hkv, dh, dv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+            *_fwd.tma_strides(q), *_fwd.tma_strides(k),
+            *_fwd.tma_strides(v), *out.stride()[:3], *_fwd.tma_strides(do),
+            *dq.stride()[:3],
             *dk.stride()[:3], *dvv.stride()[:3],
             float(scale), float(softcap or 0.0), int(bool(causal)),
             int(window or 0), int(q_offset), DTYPE_CODES[q.dtype], stream)

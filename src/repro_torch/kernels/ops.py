@@ -26,9 +26,10 @@ main path went through the kernels.
 The kernels are built at first use: one ``nvcc`` per source in
 ``csrc/``, all started together, each into a shared library with a
 plain C interface loaded through ``ctypes``.  Libraries go to
-``build/kernels/<hash of sources and flags>/`` at the repository root
-(listed in ``.gitignore``), so a changed source builds anew and an
-unchanged one loads from there.
+``build/kernels/<hash of csrc/ and flags>/`` at the repository root
+(listed in ``.gitignore``), so a changed source or shared header
+(``csrc/hopper.cuh``) builds anew and an unchanged tree loads from
+there.
 """
 from __future__ import annotations
 
@@ -72,10 +73,12 @@ def _nvcc() -> str:
 
 
 def sources_hash() -> str:
+    """Every file in ``csrc/`` (the sources and the headers they share),
+    by name and content, and the flags: an edited header builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for mod in MODULES.values():
-        h.update(mod.SOURCE.encode())
-        h.update((CSRC / mod.SOURCE).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -260,9 +263,11 @@ class FlashAttentionOp(KernelOp):
 
 
 class FlashAttentionBwdOp(KernelOp):
-    """K1b: (dq, dk, dv) of attention from the forward's residuals.  It
-    does no routing: ``FlashAttentionFunction`` picks the side once, in
-    its forward, and calls this only for the kernel."""
+    """K1b: (dq, dk, dv) of attention from the forward's residuals, on
+    the tensor cores for bfloat16 inputs and the CUDA cores for float32
+    (the source picks the body by type).  It does no routing:
+    ``FlashAttentionFunction`` picks the side once, in its forward, and
+    calls this only for the kernel."""
 
     def __call__(self, q, k, v, out, lse, do, *, causal: bool = True,
                  window: Optional[int] = None,

@@ -101,7 +101,7 @@ def main() -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / "flash_attention_probe.cu"
     cu.write_text(instrument((ops.CSRC / fm.SOURCE).read_text()))
-    subprocess.run([ops._nvcc(), *ops.NVCC_FLAGS, "-o",
+    subprocess.run([ops._nvcc(), *ops.NVCC_FLAGS, f"-I{ops.CSRC}", "-o",
                     str(out_dir / "probe.so"), str(cu)], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(out_dir / "probe.so"))
