@@ -10,9 +10,9 @@ Phases, each of which raises on failure (exit code 1):
 2. build: compile the hand-written kernels from ``src/repro_torch/kernels/csrc``
    with nvcc into the ignored ``build/kernels/`` and time the build; echo
    each kernel's registers and spills (the bf16 tensor-core
-   instantiations of K1 must not spill, nor K1b's at dh 64), K1's and
-   K1b's shared memory per block, and K3's plan (tiles, ring stages,
-   shared memory) at its timed shapes;
+   instantiations of K1 must not spill, nor K1b's at dh 64, nor K3b's),
+   K1's and K1b's shared memory per block, and K3's and K3b's plans
+   (tiles, ring stages, shared memory) at their timed shapes;
 3. parity: each kernel against its plain PyTorch version on the card, on
    the cases of ``tests/test_kernels.py``, both served models' shapes,
    rows that see no key, and the edges of the new designs (K1's bf16
@@ -22,9 +22,14 @@ Phases, each of which raises on failure (exit code 1):
    expansion, as the model hands it over): the
    attention kernels K1/K2 in float32 (atol/rtol 2e-5, TF32 off) and
    bfloat16 (3e-2), the RG-LRU scan K3 in float32 bit for bit (max error
-   0, and within 1e-6), also on a ragged width, strided views, r below one
-   tile and S around the plan's box and ring edges, and K3 refusing
-   layouts TMA cannot read;
+   0, and within 1e-6), also at the training microbatch, on a ragged
+   width, strided views, r below one tile and S around the plan's box and
+   ring edges, and K3 refusing
+   layouts TMA cannot read; K3b, the scan's backward, against its plain
+   version in float32 bit for bit on K3's y (held bit for bit too), each
+   case launched twice with the same bits: the training microbatch (B 2, S 1024, r 2560) with and without
+   h0 and dh_T, S 0 and 1, S around K3b's box and ring edges, a ragged r,
+   strided views of dy, and K3b refusing layouts TMA cannot read;
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
@@ -81,12 +86,13 @@ Phases, each of which raises on failure (exit code 1):
    backward, against their plain versions in float32 and bfloat16 at
    qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
    at dh 128, MLA's dh 192 / dv 128 and recurrentgemma's dh 256 at G 10
-   with window 2048, and at the edges (ragged S, Sq < Sk with q_offset,
+   with window 2048 (S 2048, and its training microbatch B 2 x S 1024 in
+   both types), and at the edges (ragged S, Sq < Sk with q_offset,
    non-causal, dv > dh, a do with a strided head dimension), each case
    launched twice (bit for bit the same) and profiled once to show that
    bfloat16 ran K1b's tensor-core body and float32 its scalar one; K2
-   and K3 raising NotImplementedError on CUDA tensors that require grad; a
-   float32 gate on qwen2-0.5b at full width cut to 2 layers (loss and
+   raising NotImplementedError on CUDA tensors that require grad (a
+   decode step is never differentiated); a float32 gate on qwen2-0.5b at full width cut to 2 layers (loss and
    every gradient leaf within 1e-4 of ``force_reference``, then 5
    ``Trainer`` steps on each path, losses within 1e-4 relative); then
    qwen2-0.5b uncut in bfloat16 through ``Trainer``, 10 steps of batch 4
@@ -94,13 +100,29 @@ Phases, each of which raises on failure (exit code 1):
    fall, its own launch-count window (per step 132 K1, 48 K1b), step ms,
    tokens/s, peak memory, and one profiled step (device idle share, K1b's
    and K1's shares of device time, K1b by device kernel, which must be
-   the tensor-core body's; trace in ``build/profile/train``);
+   the tensor-core body's; trace in ``build/profile/train``).  The
+   RG-LRU scan under grad on the card: its output has a ``grad_fn``, and
+   its backward launches K3b once, also with y and h_T reduced into the
+   loss (expanded cotangents), its gradients then the plain version's bit
+   for bit.  Then recurrentgemma-2b: a float32
+   gate at full width cut to ``((rglru, rglru, attn_local), 1),
+   ((rglru, rglru), 1)`` with the window cut to 128 at S 256 (loss and
+   every gradient leaf within 1e-4 of ``force_reference``, then 5
+   ``Trainer`` steps on each path), and the model uncut in bfloat16, 10
+   ``Trainer`` steps of batch 4 x 1024 in 2 microbatches, with its own
+   launch-count window (per step 88 K3, 36 K3b, 40 K1, 16 K1b), step ms,
+   tokens/s, peak memory and one profiled step (idle share, the shares
+   of device time of K3b, K3 and K1b; trace in
+   ``build/profile/train_rgemma``);
 10. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s; K1b at the four training-phase shapes against the
-   backward of sdpa); kernel and library each timed by CUDA events and on
-   the device alone, and compared device time to device time.
+   backward of sdpa; K3b at the training microbatch and at one long
+   prompt, with its achieved GB/s and no library call: no single PyTorch
+   call computes a reversed linear recurrence); kernel and library each
+   timed by CUDA events and on the device alone, and compared device
+   time to device time.
 
 It prints the kernel records on a ``kernels `` line and as one JSON
 object, then the card's name and power limit, and ends with
@@ -151,11 +173,19 @@ KERNEL_META = {
     "rglru_scan": dict(
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:40"),
+    # the VJP of the reference's associative scan, not a TPU kernel
+    "rglru_scan_bwd": dict(
+        source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/models/rglru.py:75"),
 }
 
 
-# the kernels the served paths launch (K1b runs only in training)
+# the kernels the served paths launch; the backward kernels, K1b and
+# K3b, run only in training and launch on no served path
 SERVING_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+NO_BWD = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+# K3b's timed shapes: the training microbatch and one long prompt
+K3B_SHAPES = (("main", 2, 1024, 2560), ("long", 1, 4096, 2560))
 # K1b's device kernels by body: bf16 runs the tensor-core ones, float32
 # the scalar ones (with bwd_delta and bwd_reduce for both)
 K1B_WGMMA = re.compile(r"flash_bwd_(dkdv|dq)_wgmma_kernel")
@@ -251,6 +281,25 @@ def phase_build(torch, ops):
               f"K3 plan {plan}: the kernel asks for {k3_smem(plan.stages)} "
               f"bytes of shared memory")
         log(f"  K3 plan at B {B}, S {S}, r {r}, {n_sm} SMs: {plan.blocks} "
+            f"blocks of {plan.channels} channels, {plan.stages} stages of "
+            f"{plan.steps} steps, {plan.smem_bytes} bytes of dynamic shared "
+            f"memory per block")
+    # K3b: both tile widths logged, neither may spill
+    k3b_spills = {k: v for k, v in spills.items()
+                  if k.startswith("rglru_scan_bwd_kernel")}
+    check(len(k3b_spills) == 2 and not any(k3b_spills.values()),
+          f"K3b's instantiations spill or are missing: {k3b_spills}")
+    for k in sorted(k3b_spills):
+        log(f"  K3b {k}: {regs.get(k, '?')} registers, {k3b_spills[k]} "
+            f"bytes of spills")
+    from repro_torch.kernels import rglru_scan_bwd as k3b
+    k3b_smem = getattr(ops.LIBRARY.get("rglru_scan_bwd"), k3b.SMEM_BYTES)
+    for _, B, S, r in K3B_SHAPES:
+        plan = k3b.plan_scan_bwd(B, S, r, n_sm)
+        check(k3b_smem(plan.stages) == plan.smem_bytes,
+              f"K3b plan {plan}: the kernel asks for "
+              f"{k3b_smem(plan.stages)} bytes of shared memory")
+        log(f"  K3b plan at B {B}, S {S}, r {r}, {n_sm} SMs: {plan.blocks} "
             f"blocks of {plan.channels} channels, {plan.stages} stages of "
             f"{plan.steps} steps, {plan.smem_bytes} bytes of dynamic shared "
             f"memory per block")
@@ -437,6 +486,7 @@ def phase_parity(torch, ops, ref):
                "decode_attention": f"{len(decode_cases) + len(mla_decode_cases)} "
                                    f"cases x 2 types"}
     n_cases["rglru_scan"] = parity_rglru(torch, ops, ref, gen, errs)
+    n_cases["rglru_scan_bwd"] = parity_rglru_bwd(torch, ops, ref, gen, errs)
     for kname, e in errs.items():
         log(f"parity {kname}: max abs err f32 {e['float32']:.3e} "
             f"bf16 {_fmt(e['bfloat16'], '.3e')} over {n_cases[kname]}: ok")
@@ -451,7 +501,8 @@ def parity_rglru(torch, ops, ref, gen, errs):
     """K3 against its plain version, float32 only (the scan's type): bit
     for bit (max error 0) and, as before, within atol/rtol 1e-6.  The
     sweep of tests/test_kernels.py with and without h0, a ragged r,
-    strided views, the main and long shapes, and the edges of the plan
+    strided views, the main, training and long shapes, and the edges of
+    the plan
     (``rglru_scan.plan_scan``): S around one box and around the ring's
     depth, the float32 gate's prompt 2100, four long prompts, and r below
     one tile."""
@@ -468,6 +519,7 @@ def parity_rglru(torch, ops, ref, gen, errs):
              (2, 77, 2500, True, "contig"),             # ragged r and S
              (2, 50, 320, True, "channels"),            # strided views
              (4, 128, 2560, False, "contig"),           # main path
+             (2, 1024, 2560, False, "contig"),          # training microbatch
              (1, 4096, 2560, True, "contig"),           # long, with h0
              (1, 2100, 2560, False, "contig"),          # the float32 gate's
              (4, 2048, 2560, False, "contig"),          # four long prompts
@@ -519,6 +571,100 @@ def parity_rglru(torch, ops, ref, gen, errs):
         else:
             raise SmokeFailure(f"K3 took {why}")
     return f"{len(cases)} cases, float32, bit for bit"
+
+
+def parity_rglru_bwd(torch, ops, ref, gen, errs):
+    """K3b against its plain version on the same a, y (K3's output, itself
+    held bit for bit against its plain version), h0, dy and dh_T, float32
+    only: bit for bit (max error 0), and a second launch on the same
+    inputs gives the same bits.  The training
+    microbatch with and without h0 and dh_T, S 0 and 1, a ragged r, r
+    below one tile, one long prompt, strided views of dy (a channel-stride
+    view, and rows and steps swapped), every input a view, and S around
+    the plan's box and ring edges (``rglru_scan_bwd.plan_scan_bwd``)."""
+    from repro_torch.kernels import rglru_scan_bwd as kmod
+    errs["rglru_scan_bwd"] = {"float32": 0.0, "bfloat16": None}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    # (B, S, r, h0, dhT, layout): "contig"; "dy_view" (dy a channel-stride
+    # view of a 2r-wide tensor); "dy_batch" (dy an (S, B, r) tensor read
+    # through its strides); "views" (a, y and dy channel-stride views)
+    cases = [(2, 1024, 2560, h0, dhT, "contig")          # the microbatch
+             for h0 in (True, False) for dhT in (True, False)]
+    cases += [(2, 0, 64, True, True, "contig"), (2, 0, 64, True, False,
+                                                  "contig"),
+              (2, 0, 64, False, False, "contig"),         # no step
+              (2, 1, 64, True, True, "contig"), (3, 1, 256, False, False,
+                                                  "contig"),
+              (2, 77, 2500, True, True, "contig"),        # ragged r and S
+              (3, 70, 36, False, True, "contig"),
+              (1, 300, 8, True, False, "contig"),         # r below one tile
+              (1, 4096, 2560, True, True, "contig"),      # long, with h0
+              (2, 50, 320, True, True, "dy_view"),        # strided dy
+              (3, 90, 256, False, True, "dy_batch"),
+              (2, 130, 320, True, False, "views")]
+    for B, r in ((2, 2560), (1, 2560), (2, 100)):        # box and ring edges
+        plan = kmod.plan_scan_bwd(B, 1 << 20, r, n_sm)
+        for S in (plan.steps - 1, plan.steps, plan.steps + 1,
+                  plan.stages * plan.steps - 1, plan.stages * plan.steps,
+                  plan.stages * plan.steps + 1):
+            cases.append((B, S, r, S % 2 == 0, S % 3 == 0, "contig"))
+
+    def make(B, S, r, wide, fn=lambda t: t):
+        return fn(_rand(torch, gen, (B, S, 2 * r if wide else r),
+                        torch.float32))[..., :r]
+    for B, S, r, with_h0, with_dhT, layout in cases:
+        views = layout == "views"
+        a = make(B, S, r, views, torch.sigmoid)
+        b = make(B, S, r, False)
+        h0 = _rand(torch, gen, (B, r), torch.float32) if with_h0 else None
+        dhT = _rand(torch, gen, (B, r), torch.float32) if with_dhT else None
+        y_k, _ = ops.rglru_scan.launch_kernel(a, b, h0)
+        check(torch.equal(y_k, ref.rglru_scan_ref(a, b, h0)[0]),
+              f"K3 y under rglru_scan_bwd case {(B, S, r, with_h0)}: not "
+              f"bit for bit")
+        y = make(B, S, r, True) if views else y_k
+        if views:
+            y.copy_(y_k)
+        if layout == "dy_batch":
+            dy = _rand(torch, gen, (S, B, r), torch.float32).transpose(0, 1)
+        else:
+            dy = make(B, S, r, layout in ("dy_view", "views"))
+        got = ops.rglru_scan_bwd(a, y, h0, dy, dhT)
+        torch.cuda.synchronize()
+        again = ops.rglru_scan_bwd(a, y, h0, dy, dhT)
+        want = ref.rglru_scan_bwd_ref(a, y, h0, dy, dhT)
+        case = (B, S, r, with_h0, with_dhT, layout)
+        check((got[2] is None) == (h0 is None) == (want[2] is None),
+              f"rglru_scan_bwd case {case}: dh0 {got[2] is None}")
+        for name, g, g2, w in zip(("da", "db", "dh0"), got, again, want):
+            if w is None:
+                continue
+            check(bool(torch.isfinite(g).all()), f"K3b {name} is not finite")
+            err = (g - w).abs()
+            e = float(err.max()) if err.numel() else 0.0
+            errs["rglru_scan_bwd"]["float32"] = max(
+                errs["rglru_scan_bwd"]["float32"], e)
+            check(torch.equal(g, w), f"rglru_scan_bwd case {case} {name}: "
+                  f"not bit for bit (max abs err {e})")
+            check(torch.equal(g, g2), f"rglru_scan_bwd case {case} {name}: "
+                  f"a second launch gave other bits")
+    z = torch.zeros((2, 16, 12), device="cuda")
+    flat = torch.zeros(2 * 16 * 12 + 1, device="cuda")
+    for bad, why in ((z.transpose(1, 2).contiguous().transpose(1, 2),
+                      "a non-contiguous channel dimension"),
+                     (z[..., :10], "r % 4 != 0"),
+                     (flat[1:].view(2, 16, 12), "a misaligned base"),
+                     (torch.zeros((2, 16, 10), device="cuda")[..., :8],
+                      "a 40-byte step stride")):
+        ok = torch.zeros(bad.shape, device="cuda")
+        for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            try:
+                ops.rglru_scan_bwd(args[0], args[1], None, args[2])
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure(f"K3b took {why}")
+    return f"{len(cases)} cases, float32, bit for bit, 2 launches each"
 
 
 # ---------------------------------------------------------------------------
@@ -732,9 +878,9 @@ def phase_main(torch, np, ops, tmp_root, engines):
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_layers, "decode_attention": 0,
-                        "rglru_scan": 0, "flash_attention_bwd": 0},
+                        "rglru_scan": 0, **NO_BWD},
                    {"flash_attention": 0, "decode_attention": n_layers,
-                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, "qwen2 bf16")
+                    "rglru_scan": 0, **NO_BWD}, N_TOK, "qwen2 bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the main path: {out['launches']}")
@@ -829,9 +975,9 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_attn, "decode_attention": 0,
-                        "rglru_scan": n_rec, "flash_attention_bwd": 0},
+                        "rglru_scan": n_rec, **NO_BWD},
                    {"flash_attention": 0, "decode_attention": n_attn,
-                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, "rgemma bf16")
+                    "rglru_scan": 0, **NO_BWD}, N_TOK, "rgemma bf16")
     check(all(out["launches"][k] > 0 for k in SERVING_KERNELS),
           f"a kernel was not launched on the rgemma path: {out['launches']}")
     _log_served("rgemma bf16", bf, N_TOK, out["launches"])
@@ -1204,9 +1350,9 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
                max_len=MAX_LEN, n_tok=N_TOK)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
-                        "rglru_scan": 0, "flash_attention_bwd": 0},
+                        "rglru_scan": 0, **NO_BWD},
                    {"flash_attention": 0, "decode_attention": n,
-                    "rglru_scan": 0, "flash_attention_bwd": 0}, N_TOK, f"{tag} bf16")
+                    "rglru_scan": 0, **NO_BWD}, N_TOK, f"{tag} bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the {tag} path: {out['launches']}")
@@ -1330,7 +1476,7 @@ def phase_mla(torch, np, ops, tmp_root, engines):
     got = _delta(c0, _counts(ops))
     out["absorbed_launches"] = got
     check(got == {"flash_attention": cfg.n_layers, "decode_attention": 0,
-                  "rglru_scan": 0, "flash_attention_bwd": 0},
+                  "rglru_scan": 0, **NO_BWD},
           f"absorbed prefill + 3 decode steps launched {got}")
     check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
           "absorbed decode logits not finite")
@@ -1537,7 +1683,8 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
 # K1b's shapes: (label, B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap,
 # scale, q_offset, types).  qwen2's training shape, gemma2's softcap at dh
 # 128, MLA's dh 192 / dv 128 (v a strided view), recurrentgemma's dh 256
-# at G 10 with its window, then the edges: ragged S, a window across
+# at G 10 with its window (a long prompt, and the training microbatch that
+# train_full hands K1 and K1b), then the edges: ragged S, a window across
 # tiles, Sq < Sk with q_offset, non-causal, dv > dh, dh 256 in float32
 BOTH = ("float32", "bfloat16")
 # K1b's bfloat16 gradients, beyond the element check at TOL (whose atol is
@@ -1555,6 +1702,8 @@ BWD_CASES = [
      BOTH),
     ("rgemma", 1, 2048, 2048, 10, 1, 256, 256, True, 2048, None, None, 0,
      ("bfloat16",)),
+    ("rgemma_train", 2, 1024, 1024, 10, 1, 256, 256, True, 2048, None, None,
+     0, BOTH),
     ("ragged", 2, 100, 100, 4, 2, 64, 64, True, None, None, None, 0, BOTH),
     ("window", 1, 300, 300, 4, 1, 128, 128, True, 64, 30.0, None, 0, BOTH),
     ("q_offset", 2, 70, 300, 4, 2, 64, 64, True, 200, None, None, 230, BOTH),
@@ -1746,25 +1895,61 @@ def train_parity(torch, ops, ref):
 
 
 def grad_raises(torch, ops):
-    """K2 and K3 have no backward kernel: on CUDA tensors that require
-    grad they must raise, never hand back a tensor cut from the graph."""
+    """K2 has no backward (the reference never differentiates a decode
+    step): on CUDA tensors that require grad it must raise, never hand
+    back a tensor cut from the graph.  The RG-LRU scan under grad takes
+    ``RGLRUScanFunction``: its output has a ``grad_fn``, the forward
+    launches K3 once and the backward K3b once, also when y and h_T reach
+    the loss through reductions (expanded cotangents)."""
     c0 = _counts(ops)
-    a = torch.rand((2, 16, 64), device="cuda", requires_grad=True)
-    b = torch.randn((2, 16, 64), device="cuda", requires_grad=True)
     q = torch.randn((2, 1, 4, 64), device="cuda", requires_grad=True)
     kc = torch.randn((2, 32, 2, 64), device="cuda")
     pos = torch.tensor([5, 9], dtype=torch.int32, device="cuda")
-    for name, fn in (("rglru_scan", lambda: ops.rglru_scan(a, b)),
-                     ("decode_attention",
-                      lambda: ops.decode_attention(q, kc, kc, pos))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            log(f"train: {name} under grad raises NotImplementedError: {e}")
-        else:
-            raise SmokeFailure(f"{name} on CUDA tensors that require grad "
-                               f"did not raise")
+    try:
+        ops.decode_attention(q, kc, kc, pos)
+    except NotImplementedError as e:
+        log(f"train: decode_attention under grad raises "
+            f"NotImplementedError: {e}")
+    else:
+        raise SmokeFailure("decode_attention on CUDA tensors that require "
+                           "grad did not raise")
     check(_counts(ops) == c0, "a refused call launched a kernel")
+    a = torch.rand((2, 16, 64), device="cuda", requires_grad=True)
+    b = torch.randn((2, 16, 64), device="cuda", requires_grad=True)
+    y, _ = ops.rglru_scan(a, b)
+    check(type(y.grad_fn).__name__ == "RGLRUScanFunctionBackward",
+          f"rglru_scan under grad gave a y with grad_fn {y.grad_fn}")
+    fwd = _delta(c0, _counts(ops))
+    torch.autograd.grad(y, (a, b), torch.randn_like(y))
+    torch.cuda.synchronize()
+    both = _delta(c0, _counts(ops))
+    want = dict.fromkeys(both, 0)
+    check(fwd == dict(want, rglru_scan=1)
+          and both == dict(want, rglru_scan=1, rglru_scan_bwd=1),
+          f"rglru_scan under grad launched {fwd}, then with its backward "
+          f"{both}")
+    # y and h_T reach the loss through reductions: autograd hands the
+    # backward expanded cotangents (strides of 0), which K3b must get in
+    # a layout it reads; the gradients equal the plain versions' bit for bit
+    c1 = _counts(ops)
+    h0 = torch.randn((2, 64), device="cuda", requires_grad=True)
+    y2, hT = ops.rglru_scan(a, b, h0)
+    got = torch.autograd.grad(y2.sum() + hT.sum(), (a, b, h0))
+    torch.cuda.synchronize()
+    reduced = _delta(c1, _counts(ops))
+    with ops.force_reference():
+        y2, hT = ops.rglru_scan(a, b, h0)
+        plain = torch.autograd.grad(y2.sum() + hT.sum(), (a, b, h0))
+    check(reduced == dict(want, rglru_scan=1, rglru_scan_bwd=1),
+          f"rglru_scan under grad with reduced outputs launched {reduced}")
+    check(all(torch.equal(g, p) for g, p in zip(got, plain)),
+          "rglru_scan under grad with reduced outputs: K3b's gradients are "
+          "not the plain version's bit for bit")
+    log(f"train: rglru_scan under grad has grad_fn "
+        f"{type(y.grad_fn).__name__}; forward and backward launched "
+        f"{ {k: v for k, v in both.items() if v} }; with y and h_T reduced "
+        f"(expanded cotangents) the same launches and the plain "
+        f"version's gradients bit for bit")
 
 
 def _rel_err(a, b) -> float:
@@ -1774,11 +1959,28 @@ def _rel_err(a, b) -> float:
     return diff / scale if scale else diff
 
 
-def train_gate(torch, np, ops):
-    """qwen2-0.5b at full width cut to 2 layers, float32, TF32 off: the
-    loss and every gradient leaf through K1/K1b against the same under
-    ``force_reference()``, then 5 ``Trainer`` steps on each path from the
-    same params and batches, loss curves compared step by step."""
+# the float32 training gates: (architecture, cuts, the loss and grads'
+# launches).  qwen2-0.5b cut to 2 layers; recurrentgemma-2b cut to both of
+# its segment shapes once (5 layers) with the window cut to 128 at S 256,
+# so that K1b's window binds inside the model.  Remat runs each
+# super-block twice (R < 4): a forward and its recomputation.
+TRAIN_GATES = (
+    ("qwen2-0.5b", dict(n_layers=2, segments=((("attn",), 2),)),
+     dict(flash_attention=4, flash_attention_bwd=2)),
+    ("recurrentgemma-2b",
+     dict(n_layers=5, segments=((("rglru", "rglru", "attn_local"), 1),
+                                (("rglru", "rglru"), 1)), window_size=128),
+     dict(flash_attention=2, flash_attention_bwd=1, rglru_scan=8,
+          rglru_scan_bwd=4)),
+)
+
+
+def train_gate(torch, np, ops, arch, cuts, want):
+    """``arch`` at full width with ``cuts``, float32, TF32 off: the loss
+    and every gradient leaf through the kernels (K1/K1b, K3/K3b) against
+    the same under ``force_reference()``, then 5 ``Trainer`` steps on
+    each path from the same params and batches, loss curves compared
+    step by step."""
     from repro_torch.checkpoint import flatten_with_paths, tree_map
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, packed_batches
@@ -1786,9 +1988,7 @@ def train_gate(torch, np, ops):
     from repro_torch.train import (OptimizerConfig, Trainer, TrainerConfig,
                                    loss_and_grads)
     _no_tf32(torch)
-    cfg = get_config("qwen2-0.5b")
-    cfg = dataclasses.replace(cfg, dtype="float32", n_layers=2,
-                              segments=((("attn",), 2),))
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **cuts)
     B, S, STEPS = 2, 256, 5
     data = packed_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                      batch_size=B, seed=7))
@@ -1801,9 +2001,8 @@ def train_gate(torch, np, ops):
     lk, _, gk = loss_and_grads(model, params, batch, seq_chunk=128)
     torch.cuda.synchronize()
     got = _delta(c0, _counts(ops))
-    # 2 layers, one checkpoint each: a forward and its recomputation
-    check(got["flash_attention"] == 4 and got["flash_attention_bwd"] == 2,
-          f"the gate's loss and grads launched {got}")
+    check(got == dict(dict.fromkeys(got, 0), **want),
+          f"the {arch} gate's loss and grads launched {got}, not {want}")
     c0 = _counts(ops)
     with ops.force_reference():
         lr, _, gr = loss_and_grads(model, params, batch, seq_chunk=128)
@@ -1813,8 +2012,9 @@ def train_gate(torch, np, ops):
     errs = {k: _rel_err(gk[k], gr[k]) for k in gr}
     worst = max(errs, key=errs.get)
     loss_err = abs(float(lk) - float(lr)) / abs(float(lr))
-    log(f"train gate (qwen2-0.5b full width, 2 layers, float32, batch {B}, "
-        f"seq {S}): loss {float(lk):.6f} vs plain {float(lr):.6f} (rel "
+    log(f"train gate ({arch} full width, {cfg.n_layers} layers, float32, "
+        f"batch {B}, seq {S}, window {cfg.window_size}; launches {want}): "
+        f"loss {float(lk):.6f} vs plain {float(lr):.6f} (rel "
         f"{loss_err:.3e}); grads of {len(errs)} leaves, worst max |diff| / "
         f"max |plain| {errs[worst]:.3e} at {worst} (limit {TRAIN_GRAD_TOL})")
     check(loss_err <= TRAIN_LOSS_TOL, f"gate loss differs by {loss_err}")
@@ -1830,26 +2030,51 @@ def train_gate(torch, np, ops):
             return [h["loss"] for h in tr.run()]
     ck, cr = curve(False), curve(True)
     curve_err = max(abs(a - b) / abs(b) for a, b in zip(ck, cr))
-    log(f"train gate, {STEPS} Trainer steps: losses {[round(x, 6) for x in ck]}"
+    log(f"train gate {arch}, {STEPS} Trainer steps: losses {[round(x, 6) for x in ck]}"
         f" vs plain {[round(x, 6) for x in cr]}; worst rel diff "
         f"{curve_err:.3e} (limit {TRAIN_LOSS_TOL})")
     check(all(np.isfinite(ck)) and curve_err <= TRAIN_LOSS_TOL,
           f"gate loss curves differ by {curve_err}")
     return dict(loss_rel_err=loss_err, grad_rel_err=errs[worst],
                 grad_worst_leaf=worst, curve_rel_err=curve_err,
-                curve=ck, curve_plain=cr)
+                curve=ck, curve_plain=cr, launches=got)
 
 
-def train_full(torch, np, ops, trace_dir):
-    """qwen2-0.5b uncut in bfloat16 through ``Trainer``: 10 steps of batch
+def train_window(cfg, MB):
+    """Launches per training step of ``cfg`` in ``MB`` microbatches under
+    remat (``models/transformer.py``): a segment of R super-blocks runs
+    in groups of k = ``_sqrt_divisor(R)`` (k = 1 below R 4); each group
+    runs its super-blocks once forward, again in its recomputation up to
+    its last one (whose input is all the group's backward needs) and once
+    more in each one's own backward: 3k - 1 super-block runs a group, 2 a
+    super-block without groups.  Each run launches K1 per attention
+    layer and K3 per RG-LRU layer; the backward K1b and K3b once per
+    layer."""
+    from repro_torch.models import transformer
+    per = dict.fromkeys(KERNEL_META, 0)
+    for pattern, R in cfg.segments:
+        k = transformer._sqrt_divisor(R) if R >= 4 else 1
+        runs = (R // k) * (3 * k - 1) if k > 1 else 2 * R
+        n_attn = sum(kind in ("attn", "attn_local") for kind in pattern)
+        n_rec = pattern.count("rglru")
+        per["flash_attention"] += MB * runs * n_attn
+        per["flash_attention_bwd"] += MB * R * n_attn
+        per["rglru_scan"] += MB * runs * n_rec
+        per["rglru_scan_bwd"] += MB * R * n_rec
+    return per
+
+
+def train_full(torch, np, ops, arch, trace_dir):
+    """``arch`` uncut in bfloat16 through ``Trainer``: 10 steps of batch
     4 x 1024 tokens from ``packed_batches`` in 2 microbatches at the
-    launcher's defaults, then one profiled step."""
+    launcher's defaults, its launch window checked, then one profiled
+    step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, packed_batches
-    from repro_torch.models import make_model, transformer
+    from repro_torch.models import make_model
     from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     B, S, MB, STEPS = 4, 1024, 2, 10
     t0 = time.perf_counter()
     data = packed_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
@@ -1875,30 +2100,22 @@ def train_full(torch, np, ops, trace_dir):
     launches = _counts(ops)                   # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     losses = [h["loss"] for h in hist]
-    log(f"train losses {[round(x, 4) for x in losses]}, grad norms "
+    log(f"train {arch} losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(h['grad_norm'], 3) for h in hist]}")
     check(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
     check(np.mean(losses[-3:]) < losses[0],
           f"the loss did not fall: {losses[0]} -> {losses[-3:]}")
-    # remat: R / k groups of k layers; each layer runs forward once, again
-    # in its group's recomputation (which stops before the group's last
-    # layer: its input is all the group's backward needs) and once more in
-    # its own backward: 3k - 1 K1 launches per group and microbatch
-    R = cfg.n_layers
-    k = transformer._sqrt_divisor(R)
-    per_step = {"flash_attention": MB * (R // k) * (3 * k - 1),
-                "flash_attention_bwd": MB * R, "decode_attention": 0,
-                "rglru_scan": 0}
+    per_step = train_window(cfg, MB)
     check(launches == _times(per_step, STEPS),
-          f"training launches {launches} != {STEPS} x {per_step}")
+          f"{arch} training launches {launches} != {STEPS} x {per_step}")
     step_s = sorted(h["seconds"] for h in hist[1:])
     step_ms = step_s[len(step_s) // 2] * 1e3
     res = dict(launches=launches, steps=STEPS, losses=losses,
                step_ms=step_ms, first_step_ms=hist[0]["seconds"] * 1e3,
                tokens_per_s=B * S / (step_ms / 1e3), peak_bytes=peak)
-    log(f"train: step median {step_ms:.1f} ms (first {res['first_step_ms']:.1f}"
-        f" ms), {res['tokens_per_s']:.0f} tokens/s, peak memory "
-        f"{peak / 1e9:.2f} GB; launches per step "
+    log(f"train {arch}: step median {step_ms:.1f} ms (first "
+        f"{res['first_step_ms']:.1f} ms), {res['tokens_per_s']:.0f} tokens/s, "
+        f"peak memory {peak / 1e9:.2f} GB; launches per step "
         f"{ {n: c // STEPS for n, c in launches.items()} }")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1912,8 +2129,8 @@ def train_full(torch, np, ops, trace_dir):
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / "train_step_trace.json"))
     if not kern:
-        log("train profile: the profiler recorded no device events: device "
-            "time not measured")
+        log(f"train {arch} profile: the profiler recorded no device events: "
+            f"device time not measured")
         return res
     by_name: dict = {}
     for e in kern:
@@ -1934,25 +2151,35 @@ def train_full(torch, np, ops, trace_dir):
     k1b = sum(k1b_by.values())
     k1 = sum(us for n, us in by_name.items()
              if re.search(r"flash_(fwd|wgmma)_kernel", n))
+    k3 = sum(us for n, us in by_name.items() if "rglru_scan_kernel" in n)
+    k3b = sum(us for n, us in by_name.items()
+              if "rglru_scan_bwd_kernel" in n)
+    check((k3b > 0) == (per_step["rglru_scan_bwd"] > 0),
+          f"the profiled {arch} step shows {k3b} us of K3b's device kernel "
+          f"for {per_step['rglru_scan_bwd']} launches a step")
     res.update(profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                device_events=len(kern), idle_share=1 - busy / wall_us,
                k1b_ms=k1b / 1e3, k1b_share=k1b / busy, k1_ms=k1 / 1e3,
-               k1_share=k1 / busy,
+               k1_share=k1 / busy, k3_ms=k3 / 1e3, k3_share=k3 / busy,
+               k3b_ms=k3b / 1e3, k3b_share=k3b / busy,
                k1b_kernels_ms={n: us / 1e3 for n, us in k1b_by.items()})
-    log(f"train profile (one step): wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy / 1e3:.2f} ms in {len(kern)} device events, idle share "
-        f"{res['idle_share']:.3f}; K1b {k1b / 1e3:.2f} ms "
+    log(f"train {arch} profile (one step): wall {wall_us / 1e3:.1f} ms, "
+        f"device busy {busy / 1e3:.2f} ms in {len(kern)} device events, idle "
+        f"share {res['idle_share']:.3f}; K1b {k1b / 1e3:.2f} ms "
         f"({res['k1b_share']:.1%} of device time), K1 {k1 / 1e3:.2f} ms "
-        f"({res['k1_share']:.1%}); K1b by kernel "
+        f"({res['k1_share']:.1%}), K3b {k3b / 1e3:.2f} ms "
+        f"({res['k3b_share']:.1%}), K3 {k3 / 1e3:.2f} ms "
+        f"({res['k3_share']:.1%}); K1b by kernel "
         + ", ".join(f"{n} {us / 1e3:.2f} ms" for n, us in
                     sorted(k1b_by.items(), key=lambda kv: -kv[1])))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"train profile top: {us / 1e3:8.3f} ms ({us / busy:.1%})  "
-            f"{name[:90]}")
+        log(f"train {arch} profile top: {us / 1e3:8.3f} ms ({us / busy:.1%})"
+            f"  {name[:90]}")
     table = prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=12)
     (out_dir / "profile_table.txt").write_text(table)
-    log("train profile host ops by self CPU time (one step, profiler on):")
+    log(f"train {arch} profile host ops by self CPU time (one step, "
+        f"profiler on):")
     for line in table.splitlines()[:16]:
         log(f"  {line[:150]}")
     return res
@@ -1960,14 +2187,22 @@ def train_full(torch, np, ops, trace_dir):
 
 def phase_train(torch, np, ops, ref):
     """Training on the card: K1's lse and K1b against their plain
-    versions, K2 and K3 refusing grad, the float32 gate, then full-width
-    bf16 qwen2-0.5b through ``Trainer``."""
+    versions, K2 refusing grad and the scan taking its Function, the
+    float32 gates, then full-width bf16 qwen2-0.5b and recurrentgemma-2b
+    through ``Trainer``, each model freed before the next."""
+    import gc
     out = {"errs": train_parity(torch, ops, ref)}
     grad_raises(torch, ops)
-    out["gate"] = train_gate(torch, np, ops)
-    torch.cuda.empty_cache()
-    out.update(train_full(torch, np, ops, ROOT / "build" / "profile" /
-                          "train"))
+    out["gates"] = {arch: train_gate(torch, np, ops, arch, cuts, want)
+                    for arch, cuts, want in TRAIN_GATES}
+    out["full"] = {}
+    for arch, trace in (("qwen2-0.5b", "train"),
+                        ("recurrentgemma-2b", "train_rgemma")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["full"][arch] = train_full(torch, np, ops, arch,
+                                       ROOT / "build" / "profile" / trace)
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -2120,6 +2355,30 @@ def phase_times(torch, ops, ref):
             bound_by=by)
         row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
         rows[("rglru_scan", label)] = row
+    # K3b as training calls it (no h0, no dh_T): a, y and dy read, da and
+    # db written, an add and two multiplies per element in float32 on the
+    # CUDA cores; no library call (no single PyTorch call computes a
+    # reversed linear recurrence: cumsum / cumprod forms are another
+    # function in float32)
+    for label, B, S, r in K3B_SHAPES:
+        a = torch.sigmoid(_rand(torch, gen, (B, S, r), torch.float32))
+        y, _ = ops.rglru_scan.launch_kernel(
+            a, _rand(torch, gen, (B, S, r), torch.float32))
+        dy = _rand(torch, gen, (B, S, r), torch.float32)
+        nbytes = 4 * 5 * B * S * r
+        bound, by = _bound(3 * B * S * r, nbytes, PEAK_F32_FLOPS)
+
+        def kern():
+            return ops.rglru_scan_bwd(a, y, None, dy)
+        row = dict(
+            shape=f"B={B} S={S} r={r} float32",
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
+            plain_ms=cuda_ms(torch, lambda: ref.rglru_scan_bwd_ref(
+                a, y, None, dy, None), iters=3, warmup=1),
+            library_ms=None, library_device_ms=None, bound_ms=bound,
+            bound_by=by)
+        row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
+        rows[("rglru_scan_bwd", label)] = row
     # K1b at the training path's shape ("main": qwen2, B 4, S 1024) and at
     # gemma2's, MLA's and recurrentgemma's shapes; the yardstick is the
     # backward of sdpa (its forward + backward minus its forward), timed
@@ -2255,19 +2514,28 @@ def main(argv=None) -> int:
             f"{r['profile'].get('decode_idle_share', 'not measured')}"
             + (f", MoE share of device time {moe_share}" if moe_share else ""))
     tr = results["train"]
-    log(f"e2e qwen2-0.5b training (bf16, batch 4 x 1024, 2 microbatches): "
-        f"step {tr['step_ms']:.3f} ms, {tr['tokens_per_s']:.1f} tokens/s, "
-        f"peak memory {tr['peak_bytes'] / 1e9:.3f} GB, device idle share "
-        f"{tr.get('idle_share', 'not measured')}, K1b share of device time "
-        f"{tr.get('k1b_share', 'not measured')}, K1 share "
-        f"{tr.get('k1_share', 'not measured')}")
+    qtr, rtr = (tr["full"][a] for a in ("qwen2-0.5b", "recurrentgemma-2b"))
+    for arch, t, shares in (("qwen2-0.5b", qtr, ("k1b", "k1")),
+                            ("recurrentgemma-2b", rtr,
+                             ("k3b", "k3", "k1b", "k1"))):
+        log(f"e2e {arch} training (bf16, batch 4 x 1024, 2 microbatches): "
+            f"step {t['step_ms']:.3f} ms, {t['tokens_per_s']:.1f} tokens/s, "
+            f"peak memory {t['peak_bytes'] / 1e9:.3f} GB, device idle share "
+            f"{t.get('idle_share', 'not measured')}, "
+            + ", ".join(f"{k.upper()} share of device time "
+                        f"{t.get(k + '_share', 'not measured')}"
+                        for k in shares))
     log("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in phase_s.items()}))
-    # `launches` is, for K1-K3, the recurrentgemma run (it launches all
-    # three serving kernels) and, for K1b, the training run; each path's
-    # own counts are beside it
+    # `launches` is, for K1-K3, the recurrentgemma served run (it launches
+    # all three serving kernels), for K1b the qwen2 training run and for
+    # K3b the recurrentgemma training run; each path's own counts are
+    # beside it
     paths = {tag: results[key]["launches"] for key, tag in PATHS}
-    paths["qwen2-0.5b train"] = tr["launches"]
+    paths["qwen2-0.5b train"] = qtr["launches"]
+    paths["recurrentgemma-2b train"] = rtr["launches"]
+    train_path = {"flash_attention_bwd": "qwen2-0.5b train",
+                  "rglru_scan_bwd": "recurrentgemma-2b train"}
     errs_all = dict(results["errs"],
                     flash_attention_bwd=tr["errs"]["flash_attention_bwd"])
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
@@ -2277,8 +2545,7 @@ def main(argv=None) -> int:
         t_main = results["times"][(name, "main")]
         errs = errs_all[name]
         mod = ops.MODULES[name]
-        path = ("qwen2-0.5b train" if name == "flash_attention_bwd"
-                else "recurrentgemma-2b")
+        path = train_path.get(name, "recurrentgemma-2b")
         rec = dict(name=name, route="cuda", **meta, design=mod.DESIGN,
                    device_kernels_per_call=mod.DEVICE_KERNELS_PER_CALL,
                    launches=paths[path][name],
@@ -2293,7 +2560,9 @@ def main(argv=None) -> int:
                    shape=t_main["shape"])
         if "device_gb_s" in t_main:
             rec["device_gb_s"] = t_main["device_gb_s"]
-        rec["launches_per_train_step"] = tr["launches"][name] // tr["steps"]
+        rec["launches_per_train_step"] = qtr["launches"][name] // qtr["steps"]
+        rec["launches_per_rgemma_train_step"] = (rtr["launches"][name]
+                                                 // rtr["steps"])
         if name == "flash_attention_bwd":
             rec["bf16_scaled_err"] = tr["errs"]["bwd_bf16"]["scaled"]
             rec["bf16_rel_l2_err"] = tr["errs"]["bwd_bf16"]["rel_l2"]

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels: K1's bf16 body (flash_attention.cu) and K1b's
-// (flash_attention_bwd.cu).
+// Hopper (sm_90a) building blocks shared by the port's kernels: K1's
+// bf16 body (flash_attention.cu), K1b's (flash_attention_bwd.cu) and
+// K3b's TMA ring (rglru_scan_bwd.cu).  K3 (rglru_scan.cu) keeps its own
+// copies of the 3-d helpers below: tools/k3_phase_probe.py builds
+// instrumented copies of that one source on its own.
 //
 // * mbarriers and TMA: a 4-d tiled copy of a (B, S, H, D) bf16 tensor
 //   into shared memory, its completion counted in bytes on a barrier;
@@ -9,6 +11,9 @@
 //   libraries link no -lcuda).  Boxes are 64 columns (128 bytes) wide
 //   with the 128-byte swizzle, so a tile is a run of 64-column chunks,
 //   each `rows` x 128 bytes on a 1024-byte boundary.
+// * 3-d TMA for the scan's (B, S, r) float32 tensors: loads counted on
+//   a barrier, stores out of shared memory in bulk groups, unswizzled
+//   boxes of C channels x T steps of one row.
 // * wgmma.mma_async m64nNk16 with bf16 operands and float32
 //   accumulators: the shared-memory forms (A and B K-major) and the
 //   register-A forms (B MN-major, the transpose bit set), and the fences
@@ -55,6 +60,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// one TMA box from a 3-d tensor map (coordinates innermost first) into
+// shared memory, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+// one box of shared memory out to a 3-d tensor map, in a bulk group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N bulk groups still read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// order this thread's shared-memory writes before the async proxy's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
@@ -219,6 +255,22 @@ bool encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int D, int 
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// A (B, S, r) float32 tensor as a 3-d map over (r, S, B), innermost
+// first; boxes of C channels x T steps of one row, zero-filled out of
+// bounds (past r and S, and before step 0) when loaded and clipped when
+// stored.  Strides in elements.
+bool encode_map_3d(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int B, int S, int r,
+                   int64_t sb, int64_t ss, int C, int T) {
+  const cuuint64_t dims[3] = {(cuuint64_t)r, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)ss * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)C, (cuuint32_t)T, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

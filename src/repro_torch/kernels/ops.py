@@ -10,13 +10,15 @@ Each kernel op routes by where its tensors lie:
 ``force_reference()`` sends CUDA tensors to the plain versions too; it
 exists for the card-side parity runs (``chip_smoke.py``) only.
 
-Gradients: attention is differentiable through ``FlashAttentionFunction``,
-a ``torch.autograd.Function`` whose forward is K1 (with its row
-log-sum-exp) and whose backward is K1b, or the plain versions of both for
-CPU tensors and under ``force_reference()``.  It is taken only when grad
-mode is on and an input requires grad; otherwise the call is the single
-K1 launch serving makes.  K2 and K3 have no backward kernel yet: on CUDA
-tensors that require grad they raise rather than hand back a tensor cut
+Gradients: attention and the RG-LRU scan are differentiable through
+``torch.autograd.Function``s.  ``FlashAttentionFunction``'s forward is
+K1 (with its row log-sum-exp) and its backward K1b;
+``RGLRUScanFunction``'s forward is K3 and its backward K3b; both take
+the plain versions for CPU tensors and under ``force_reference()``.  A
+Function is taken only when grad mode is on and an input requires grad;
+otherwise the call is the single K1 or K3 launch serving makes.  K2 has
+no backward (the reference never differentiates a decode step): on CUDA
+tensors that require grad it raises rather than hand back a tensor cut
 from the graph.
 
 Each op counts its kernel launches in a plain ``launches`` int, bumped
@@ -50,6 +52,7 @@ from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru_mod
+from repro_torch.kernels import rglru_scan_bwd as _rglru_bwd_mod
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -58,9 +61,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> host module that declares and launches its entry point
 MODULES = {"flash_attention": _flash_mod,
            "flash_attention_bwd": _flash_bwd_mod,
-           "decode_attention": _decode_mod, "rglru_scan": _rglru_mod}
-# where a kernel without a backward names the work that adds it
-K3_BACKWARD_ITEM = "ROADMAP.md module item 6c (K3's backward)"
+           "decode_attention": _decode_mod, "rglru_scan": _rglru_mod,
+           "rglru_scan_bwd": _rglru_bwd_mod}
 
 
 def _nvcc() -> str:
@@ -303,27 +305,90 @@ class DecodeAttentionOp(KernelOp):
         return out
 
 
+class RGLRUScanFunction(torch.autograd.Function):
+    """The scan with the reverse walk as its VJP: the forward saves a,
+    its output y (every step's state) and h0; the backward walks them
+    with dy and dh_T (``ref.rglru_scan_bwd_ref``).  Which side runs
+    (kernels, or plain versions for CPU tensors and under
+    ``force_reference()``) is decided once, in the forward, and the
+    backward follows it.  Ungiven cotangents stay None, so a dh_T nobody
+    used reaches K3b as a null pointer, not a tensor of zeros; given ones
+    may be expanded (``hT.sum()`` hands over strides of 0), so K3b gets a
+    dy TMA can read and a dh_T with its channels contiguous."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        tensors = (a, b) if h0 is None else (a, b, h0)
+        ctx.set_materialize_grads(False)
+        ctx.reference = not _on_cuda(*tensors) or reference_forced()
+        if ctx.reference:
+            y, hT = ref.rglru_scan_ref(a, b, h0)
+        else:
+            y, hT = rglru_scan.launch_kernel(a, b, h0)
+        ctx.save_for_backward(a, y, h0)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        a, y, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        if ctx.reference:
+            da, db, dh0 = ref.rglru_scan_bwd_ref(a, y, h0, dy, dhT)
+        else:
+            da, db, dh0 = rglru_scan_bwd(
+                a, y, h0, _tma_readable(dy),
+                None if dhT is None else dhT.contiguous())
+        return (da.to(a.dtype), db.to(a.dtype),
+                None if dh0 is None else dh0.to(h0.dtype))
+
+
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a contiguous copy when TMA cannot read its layout (a
+    cotangent autograd hands over may be expanded or strided)."""
+    try:
+        _rglru_mod.check_layout(tuple(t.shape), t.stride(), t.data_ptr())
+    except ValueError:
+        return t.contiguous()
+    return t
+
+
 class RGLRUScanOp(KernelOp):
     def __call__(self, a, b, h0: Optional[torch.Tensor] = None):
         tensors = (a, b) if h0 is None else (a, b, h0)
+        if _needs_grad(*tensors):
+            return RGLRUScanFunction.apply(a, b, h0)
         if not _on_cuda(*tensors) or reference_forced():
             return ref.rglru_scan_ref(a, b, h0)
-        if _needs_grad(*tensors):
-            raise NotImplementedError(
-                "rglru_scan (K3) has no backward kernel yet, so a CUDA "
-                "RG-LRU model cannot train on the card: "
-                f"{K3_BACKWARD_ITEM}")
+        return self.launch_kernel(a, b, h0)
+
+    def launch_kernel(self, a, b, h0=None):
+        """K3 once on CUDA tensors, counted; raises if it cannot run."""
         out = _rglru_mod.launch(self.library.get(self.name), a, b, h0)
         self._counted()
         return out
+
+
+class RGLRUScanBwdOp(KernelOp):
+    """K3b: (da, db, dh0) of the scan from a, the forward's y, h0, dy
+    and dh_T.  It does no routing: ``RGLRUScanFunction`` picks the side
+    once, in its forward, and calls this only for the kernel."""
+
+    def __call__(self, a, y, h0, dy, dhT=None):
+        """K3b once on CUDA tensors, counted; raises if it cannot run."""
+        grads = _rglru_bwd_mod.launch(self.library.get(self.name), a, y, dy,
+                                      h0, dhT)
+        self._counted()
+        return grads
 
 
 flash_attention = FlashAttentionOp("flash_attention", LIBRARY)
 flash_attention_bwd = FlashAttentionBwdOp("flash_attention_bwd", LIBRARY)
 decode_attention = DecodeAttentionOp("decode_attention", LIBRARY)
 rglru_scan = RGLRUScanOp("rglru_scan", LIBRARY)
+rglru_scan_bwd = RGLRUScanBwdOp("rglru_scan_bwd", LIBRARY)
 KERNELS = (flash_attention, flash_attention_bwd, decode_attention,
-           rglru_scan)
+           rglru_scan, rglru_scan_bwd)
 
 
 def reset_launches() -> None:

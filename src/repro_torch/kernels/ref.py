@@ -7,9 +7,10 @@ masking arithmetic: scores of masked pairs become ``NEG_INF`` (a large
 finite number) before the softmax.  ``flash_attention_bwd_ref`` is the
 reference's custom VJP backward (``layers._flash_bwd_rule``) without its
 chunking.  ``rglru_scan_ref`` is the literal recurrence of
-``repro.kernels.ref.ref_rglru_scan``.  ``kernels/ops.py`` sends CPU
-tensors here; ``chip_smoke.py`` holds each CUDA kernel against these on
-the card.
+``repro.kernels.ref.ref_rglru_scan`` and ``rglru_scan_bwd_ref`` its
+gradient, the reverse walk that the VJP of the reference's scan
+computes.  ``kernels/ops.py`` sends CPU tensors here; ``chip_smoke.py``
+holds each CUDA kernel against these on the card.
 """
 from __future__ import annotations
 
@@ -176,3 +177,28 @@ def rglru_scan_ref(a, b, h0=None):
         h = a[:, t] * h + b[:, t]
         y[:, t] = h
     return y, h
+
+
+def rglru_scan_bwd_ref(a, y, h0, dy, dhT):
+    """Gradients of :func:`rglru_scan_ref` from its output ``y`` (every
+    step's state) and the cotangents ``dy`` (B, S, r) and ``dhT`` (B, r)
+    or None (zeros), as the literal reverse walk in float32, one
+    separately rounded operation at a time: carry ``c`` from dhT (or 0)
+    over t = S-1 ... 0 with ``g = dy_t + c``, ``db_t = g``, ``da_t = g *
+    h_{t-1}`` (``y_{t-1}``; ``h0`` or 0 before step 0) and ``c = a_t *
+    g``.  Returns (da, db (B, S, r), dh0 (B, r) or None when h0 is None),
+    float32; with S == 0, dh0 is dhT (or zeros)."""
+    a, y, dy = a.float(), y.float(), dy.float()
+    B, S, r = a.shape
+    c = (torch.zeros((B, r), dtype=torch.float32, device=a.device)
+         if dhT is None else dhT.float().clone())
+    h_start = (torch.zeros((B, r), dtype=torch.float32, device=a.device)
+               if h0 is None else h0.float())
+    da = torch.empty((B, S, r), dtype=torch.float32, device=a.device)
+    db = torch.empty((B, S, r), dtype=torch.float32, device=a.device)
+    for t in range(S - 1, -1, -1):
+        g = dy[:, t] + c
+        db[:, t] = g
+        da[:, t] = g * (y[:, t - 1] if t > 0 else h_start)
+        c = a[:, t] * g
+    return da, db, (None if h0 is None else c)

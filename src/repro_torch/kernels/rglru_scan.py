@@ -52,37 +52,49 @@ def bind(lib: ctypes.CDLL) -> None:
 @dataclass(frozen=True)
 class ScanPlan:
     channels: int     # C: channels, and threads, per block
-    steps: int        # T: steps per TMA box, one ring stage
+    steps: int        # T: steps per TMA box
     stages: int       # ring depth
     tiles: int        # channel tiles per row, ceil(r / C)
     blocks: int       # B * tiles, each one walks all S steps
     smem_bytes: int   # dynamic shared memory per block
 
 
-def plan_scan(B: int, S: int, r: int, n_sm: int) -> ScanPlan:
-    """The kernel's tiles and ring for (B, S, r) on ``n_sm`` SMs.
+def ring_plan(B: int, S: int, r: int, n_sm: int, box_bytes: int,
+              boxes_per_stage: int, out_boxes: int) -> ScanPlan:
+    """The tiles and ring of a scan kernel (K3, and its backward K3b in
+    ``rglru_scan_bwd.py``) for (B, S, r) on ``n_sm`` SMs.
 
     The widest tile of ``TILE_CHANNELS`` that gives at least one block per
-    SM, else the narrowest; a stage holds ``STAGE_BYTES`` of a and b, so T
-    is 32 steps at 32 channels and 64 at 16.  The ring takes about
-    ``RING_BYTES_PER_SM`` of each SM's shared memory, split over the
-    blocks an SM holds, with at least two stages (one walked, one in
-    flight) and never more stages than boxes.  S is not split: every block
-    walks its channels over the whole sequence.  The plan reads only these
-    four numbers."""
+    SM, else the narrowest; a TMA box holds ``box_bytes`` of one tensor, so
+    T is ``box_bytes / (4 C)`` steps, and a stage holds ``boxes_per_stage``
+    boxes.  The ring takes about ``RING_BYTES_PER_SM`` of each SM's shared
+    memory, split over the blocks an SM holds, with at least two stages
+    (one walked, one in flight) and never more stages than boxes; beside
+    it a block stages ``out_boxes`` boxes for its TMA stores.  S is not
+    split: every block walks its channels over the whole sequence.  The
+    plan reads only its arguments and this module's constants."""
     for C in TILE_CHANNELS:
         tiles = -(-r // C)
         if B * tiles >= n_sm:
             break
-    T = STAGE_BYTES // (2 * 4 * C)
+    T = box_bytes // (4 * C)
+    stage_bytes = boxes_per_stage * box_bytes
     blocks = B * tiles
     boxes = max(1, -(-S // T))
     per_sm = max(1, -(-blocks // max(1, n_sm)))
-    budget = RING_BYTES_PER_SM // (STAGE_BYTES * per_sm)
+    budget = RING_BYTES_PER_SM // (stage_bytes * per_sm)
     stages = min(boxes, max(2, min(MAX_STAGES, budget)))
-    smem = (SMEM_ALIGN + stages * STAGE_BYTES + Y_BUFFERS * STAGE_BYTES // 2
+    smem = (SMEM_ALIGN + stages * stage_bytes + out_boxes * box_bytes
             + 8 * stages)
     return ScanPlan(C, T, stages, tiles, blocks, smem)
+
+
+def plan_scan(B: int, S: int, r: int, n_sm: int) -> ScanPlan:
+    """K3's tiles and ring for (B, S, r) on ``n_sm`` SMs (``ring_plan``):
+    a stage holds ``STAGE_BYTES``, a box of a and one of b, so T is 32
+    steps at 32 channels and 64 at 16, and ``Y_BUFFERS`` y boxes are
+    staged for their stores.  The plan reads only these four numbers."""
+    return ring_plan(B, S, r, n_sm, STAGE_BYTES // 2, 2, Y_BUFFERS)
 
 
 def check_layout(shape, strides, data_ptr: int) -> None:

@@ -4,11 +4,11 @@ Trains the reduced float32 variant of ``--arch`` on the synthetic corpus
 (``repro_torch.data``) for real, on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch qwen2-0.5b --steps 20
 
-On the card attention runs K1 forward and K1b backward; recurrentgemma's
-RG-LRU scan has no backward kernel yet and raises there (ROADMAP.md
-module item 6c), so that family trains on the CPU only.  ``--dry-run``
+On the card attention runs K1 forward and K1b backward, and
+recurrentgemma's RG-LRU scan K3 forward and K3b backward.  ``--dry-run``
 (lowering the full config on a production mesh) is not ported yet.
 """
 from __future__ import annotations

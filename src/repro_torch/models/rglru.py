@@ -8,10 +8,12 @@ RG-LRU recurrence (Griffin eq. 1-4), computed in float32:
     log a_t = -c * softplus(Lambda) * r_t
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through ``kernels.ops.rglru_scan`` (kernel
-K3 on CUDA tensors, its plain version on CPU tensors); the reference
-runs ``jax.lax.associative_scan`` there, which agrees up to float32
-reordering.  Decoding is a single-step update.  The convolutions are
+Prefill and training run the recurrence through ``kernels.ops.rglru_scan``
+(kernel K3 on CUDA tensors, its plain version on CPU tensors; under
+autograd its gradient is the reverse walk, kernel K3b on the card); the
+reference runs ``jax.lax.associative_scan`` there, which agrees up to
+float32 reordering, and differentiates it.  Decoding is a single-step
+update.  The convolutions are
 width-many shifted multiply-adds in float32, as in the reference, and
 never go through cuDNN (which would run them in TF32 on the card).
 """
@@ -79,7 +81,8 @@ def _gates(lru, x, nh: int, c: float):
 
 def rglru_scan(lru, x, nh: int, c: float, h0=None):
     """x: (B, S, r) -> (y (B, S, r) in x's type, h_final (B, r) float32).
-    The recurrence runs in kernel K3 on the card."""
+    The recurrence runs in kernel K3 on the card and, under autograd, its
+    backward in kernel K3b."""
     a, b = _gates(lru, x, nh, c)                             # (B, S, r) f32
     h, h_last = ops.rglru_scan(a, b, None if h0 is None else h0.float())
     return h.to(x.dtype), h_last

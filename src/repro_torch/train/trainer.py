@@ -6,8 +6,8 @@ periodic checkpoints.
 -> (params, opt_state, metrics).  PyTorch runs eagerly, so there is no
 ``jit``: the step takes gradients with ``torch.autograd.grad`` and applies
 ``adamw_update``.  On the card attention runs K1 forward and K1b
-backward (``kernels/ops.py``); the RG-LRU scan has no backward kernel yet
-and raises there.
+backward, and the RG-LRU scan K3 forward and K3b backward
+(``kernels/ops.py``).
 """
 from __future__ import annotations
 # fabriclint: allow-file[clock] -- step timing is a measured wall-clock
