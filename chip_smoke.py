@@ -29,7 +29,10 @@ Phases, each of which raises on failure (exit code 1):
    version in float32 bit for bit on K3's y (held bit for bit too), each
    case launched twice with the same bits: the training microbatch (B 2, S 1024, r 2560) with and without
    h0 and dh_T, S 0 and 1, S around K3b's box and ring edges, a ragged r,
-   strided views of dy, and K3b refusing layouts TMA cannot read;
+   strided views of dy, and K3b refusing layouts TMA cannot read; K1
+   (bf16 and float32) and K3 launched first thing on a fresh thread, bit
+   for bit the main thread's launch (the fabric runs bodies on pool and
+   router threads);
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
@@ -81,7 +84,25 @@ Phases, each of which raises on failure (exit code 1):
    decode steps must give a 128-token forward's logits (the chunkwise
    prefill's states handed over to the step recurrence); each within
    1e-3 with identical greedy tokens;
-9. train: the second entry point, training.  K1's float32 row
+9. fabric: full-width qwen2-0.5b (bf16, batch 4, prompt 128), published
+   once, through the fabric: on one scheduler (the thread backend; the
+   reference logits of 16 prompts); on two shards of the card behind
+   the warmth-aware router (``deploy(shards=2, elastic=True)``,
+   ``max_instances=2``): a prediction fired on shard 0 placed by the
+   router on warm shard 1, whose next request runs with nothing inline,
+   16 concurrent requests, ``scale_shards(3)`` with the new shard
+   serving, and ``scale_shards(1)`` draining with 8 requests in flight;
+   every logit bit for bit one scheduler's, K1 24 times per forward
+   (warm-up forwards counted), no request lost; then out of process, on
+   the subprocess and the snapshot backends (``spec_ref`` naming
+   ``fabric_endpoint_spec``): a cold invoke, the instance demoted to
+   INITIALIZED, a freshen, the freshened invoke (nothing inline) and a
+   warm invoke, K1 launched 24 times per forward in the child, logits
+   within the bf16 tolerance of the thread backend's with the same
+   argmax, and the cold start's parts (spawn or fork, ``import torch``,
+   CUDA context, weights, kernel library), the child's memory and no
+   process left after ``close``;
+10. train: the second entry point, training.  K1's float32 row
    log-sum-exp (written only when asked for) and K1b, the flash-attention
    backward, against their plain versions in float32 and bfloat16 at
    qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
@@ -114,7 +135,7 @@ Phases, each of which raises on failure (exit code 1):
    tokens/s, peak memory and one profiled step (idle share, the shares
    of device time of K3b, K3 and K1b; trace in
    ``build/profile/train_rgemma``);
-10. times: each kernel, its plain version, the PyTorch library call and
+11. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s; K1b at the four training-phase shapes against the
@@ -145,7 +166,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "train", "times")
+          "fabric", "train", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -490,7 +511,49 @@ def phase_parity(torch, ops, ref):
     for kname, e in errs.items():
         log(f"parity {kname}: max abs err f32 {e['float32']:.3e} "
             f"bf16 {_fmt(e['bfloat16'], '.3e')} over {n_cases[kname]}: ok")
+    parity_fresh_thread(torch, ops, gen)
     return errs
+
+
+def parity_fresh_thread(torch, ops, gen):
+    """K1 (bf16 and float32) and K3 launched from a fresh thread whose
+    first CUDA work is that launch, as a pool or router thread of the
+    fabric may make it, on inputs made on the main thread: bit for bit
+    the main thread's result.  ``cuTensorMapEncodeTiled`` fails in a
+    thread with no current context, so each launch makes a runtime call
+    first."""
+    import threading
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (_rand(torch, gen, (4, 128, h, 64), dtype)
+                   for h in (14, 2, 2))
+        cases.append((f"flash_attention {str(dtype).split('.')[-1]}",
+                      lambda q=q, k=k, v=v: ops.flash_attention(q, k, v)))
+    a = torch.sigmoid(_rand(torch, gen, (4, 128, 2560), torch.float32))
+    b = _rand(torch, gen, (4, 128, 2560), torch.float32)
+    cases.append(("rglru_scan float32", lambda: ops.rglru_scan(a, b)[0]))
+    for name, launch in cases:
+        want = launch()
+        torch.cuda.synchronize()
+        got: dict = {}
+
+        def run():
+            try:
+                got["out"] = launch()
+                torch.cuda.synchronize()
+            except BaseException as e:               # noqa: BLE001
+                got["error"] = e
+
+        th = threading.Thread(target=run, name=f"fresh-{name}")
+        th.start()
+        th.join(timeout=120)
+        check(not th.is_alive(), f"{name} on a fresh thread did not return")
+        check("error" not in got,
+              f"{name} on a fresh thread raised {got.get('error')!r}")
+        check(torch.equal(got["out"], want),
+              f"{name} on a fresh thread differs from the main thread's")
+    log(f"parity fresh thread: {', '.join(n for n, _ in cases)} launched "
+        f"first thing on a new thread, bit for bit the main thread's")
 
 
 def _fmt(x, spec):
@@ -1679,6 +1742,392 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
 
 
 # ---------------------------------------------------------------------------
+# phase fabric: placement across shards and out-of-process endpoints
+FABRIC_ARCH = "qwen2-0.5b"
+FABRIC_NAME = "qwen2"
+FABRIC_SHAPE = (4, 128)                 # batch, prompt: the served shape
+FABRIC_REQUESTS = 16
+FABRIC_SPEC_REF = "chip_smoke:fabric_endpoint_spec"
+# how the worker and template processes find the published weights: the
+# backends hand them this process's environment
+FABRIC_STORE_ENV = "CHIP_SMOKE_FABRIC_STORE"
+
+
+def fabric_endpoint_spec():
+    """The fabric phase's endpoint as an out-of-process worker rebuilds
+    it (``spec_ref``): the same qwen2-0.5b endpoint on the store the
+    parent published to, its body wrapped so that each result also
+    carries the child's pid, its kernels' launch counts, the libraries
+    nvcc built in it (none: it loads what the ``build`` phase built),
+    its device memory and the parts of its cold start.  A snapshot
+    template calls this before it forks, so it touches no CUDA: the
+    context is made by ``init_fn``, in the instance."""
+    import os
+    t0 = time.perf_counter()
+    import torch
+    t_torch = time.perf_counter() - t0
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Executor, ModelEndpoint, WeightStore
+    t_import = time.perf_counter() - t0
+    B, S = FABRIC_SHAPE
+    ep = ModelEndpoint(FABRIC_NAME, get_config(FABRIC_ARCH),
+                       WeightStore(os.environ[FABRIC_STORE_ENV]), Executor(),
+                       batch_size=B, seq_len=S, device="cuda",
+                       spec_ref=FABRIC_SPEC_REF)
+    parts = {"pid_at_spec": os.getpid(), "import_torch_s": t_torch,
+             "import_s": t_import}
+
+    def init_fn(rt):
+        t = time.perf_counter()
+        torch.cuda.init()
+        torch.empty(1, device="cuda")
+        torch.cuda.synchronize()
+        parts["cuda_context_s"] = time.perf_counter() - t
+
+    def code(ctx, args):
+        out = ep.code(ctx, args)
+        out.update(parts, pid=os.getpid(), launches=_counts(ops),
+                   nvcc_built=list(ops.LIBRARY.built),
+                   memory_reserved=torch.cuda.memory_reserved(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        return out
+    return dataclasses.replace(ep.spec(), code=code, init_fn=init_fn)
+
+
+def _running(pid) -> bool:
+    """Whether ``pid`` is a live process (a zombie is not)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[-1].split()[0] not in ("Z", "X")
+
+
+def _ms_since(t0):
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fabric_sequence(np, eng, rt, prompt, tag):
+    """On one deployed endpoint: a cold invoke (weights, kernel library
+    and warm-up inline), the instance demoted to INITIALIZED (its caches
+    released, as keep-alive demotion does: process, CUDA context and plan
+    stay), a freshen, the freshened invoke, which must pay nothing
+    inline, and a warm invoke."""
+    from repro_torch.core import WarmthLevel
+    res = {}
+    t0 = time.perf_counter()
+    res["cold"] = eng.invoke(FABRIC_NAME, prompt, freshen_successors=False)
+    res["cold_ms"] = _ms_since(t0)
+    inline0 = rt.freshen_stats()["inline"]
+    check(inline0 >= 3, f"{tag} cold invoke paid {inline0} inline")
+    rt.demote_to(WarmthLevel.INITIALIZED)
+    t0 = time.perf_counter()
+    rt.freshen(blocking=True)
+    res["freshen_ms"] = _ms_since(t0)
+    t0 = time.perf_counter()
+    res["fresh"] = eng.invoke(FABRIC_NAME, prompt, freshen_successors=False)
+    res["freshened_ms"] = _ms_since(t0)
+    st = rt.freshen_stats()
+    res["fresh_inline"] = st["inline"] - inline0
+    check(res["fresh_inline"] == 0 and st["freshened"] >= 3,
+          f"{tag} freshened invoke: {st}, {res['fresh_inline']} inline")
+    t0 = time.perf_counter()
+    res["warm"] = eng.invoke(FABRIC_NAME, prompt, freshen_successors=False)
+    res["warm_ms"] = _ms_since(t0)
+    for k in ("cold", "fresh", "warm"):
+        logits = res[k]["logits"]
+        check(logits.shape[:2] == (FABRIC_SHAPE[0], 1)
+              and bool(np.isfinite(logits).all()),
+              f"{tag} {k} logits {logits.shape} not finite or misshapen")
+    return res
+
+
+def _bf16_close(np, got, want):
+    tol = TOL["bfloat16"]
+    err = np.abs(got - want)
+    return (float(err.max()), bool((err <= tol["atol"]
+                                    + tol["rtol"] * np.abs(want)).all()))
+
+
+def _wait_gone(pids, timeout=15.0):
+    deadline = time.monotonic() + timeout
+    while any(_running(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return [p for p in pids if _running(p)]
+
+
+def phase_fabric(torch, np, ops, tmp_root, engines):
+    """qwen2-0.5b uncut, bf16, batch 4 x prompt 128, published once:
+    (a) on one scheduler, the thread backend: the reference logits and
+    the thread row; (b) two shards on the card behind the warmth-aware
+    router, with a cross-shard freshen, 16 concurrent requests, a third
+    shard, and a drain back to one shard with requests in flight; (c) out
+    of process, on the subprocess and the snapshot backends."""
+    import os
+    import threading
+    from repro_torch.cluster import partition_devices
+    from repro_torch.configs import get_config
+    from repro_torch.core import PoolConfig, Prediction
+    from repro_torch.models import make_model
+    from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine,
+                                     WeightStore)
+
+    cfg = get_config(FABRIC_ARCH)
+    B, S = FABRIC_SHAPE
+    per_fwd = {"flash_attention": cfg.n_layers, "decode_attention": 0,
+               "rglru_scan": 0, **NO_BWD}
+    ops.LIBRARY.load()             # workers only load what this built
+    store_root = tempfile.mkdtemp(dir=tmp_root, prefix="weights-")
+    store = WeightStore(store_root)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _publish(store, FABRIC_NAME, make_model(cfg, device="cuda").init(gen))
+    torch.cuda.empty_cache()
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(FABRIC_REQUESTS, B, S), dtype=np.int32)
+    pool_cfg = PoolConfig(max_instances=2, keep_alive=600.0)
+    out: dict = {"backends": {}}
+
+    def endpoint(**kw):
+        return ModelEndpoint(FABRIC_NAME, cfg, store, Executor(),
+                             batch_size=B, seq_len=S, device="cuda", **kw)
+
+    # ---- (a) one scheduler, thread backend ---------------------------------
+    eng1 = ServingEngine()
+    engines.append(eng1)
+    t0 = time.perf_counter()
+    rt1 = eng1.deploy(endpoint(), pool_config=pool_cfg)
+    deploy_ms = _ms_since(t0)
+    c0 = _counts(ops)
+    seq = fabric_sequence(np, eng1, rt1, prompts[0], "thread")
+    check(_delta(c0, _counts(ops)) == _times(per_fwd, 5),
+          f"thread sequence launches {_delta(c0, _counts(ops))}")
+    want = [eng1.invoke(FABRIC_NAME, p, freshen_successors=False)["logits"]
+            for p in prompts]
+    check(np.array_equal(seq["warm"]["logits"], want[0]),
+          "thread backend: the warm and later logits differ")
+    out["backends"]["thread"] = {
+        "deploy_ms": deploy_ms, "cold_ms": seq["cold_ms"],
+        "freshen_ms": seq["freshen_ms"], "freshened_ms": seq["freshened_ms"],
+        "warm_ms": seq["warm_ms"], "cold_timing": seq["cold"]["timing"],
+        "memory_reserved": torch.cuda.memory_reserved()}
+    eng1.close()
+    del rt1, seq
+    torch.cuda.empty_cache()
+
+    # ---- (b) shards on one card --------------------------------------------
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    log(f"fabric: partition_devices({[str(c) for c in cards]}, 2) = "
+        f"{partition_devices(cards, 2)}; the engine pins no shard, so every "
+        f"shard runs on cuda:{torch.cuda.current_device()}")
+    eng = ServingEngine(router_policy="warmth-aware")
+    engines.append(eng)
+    ep = endpoint()
+    n_warm, warm_lock = [0], threading.Lock()
+    warmup = ep.executor.warmup
+
+    def counted_warmup(*args, **kw):          # each is one more forward
+        with warm_lock:
+            n_warm[0] += 1
+        return warmup(*args, **kw)
+    ep.executor.warmup = counted_warmup
+    n_req = 0
+    ops.reset_launches()                      # the sharded run starts
+    eng.deploy(ep, pool_config=pool_cfg, shards=2, elastic=True)
+    cluster = eng.cluster
+    w0, w1 = cluster.worker(0), cluster.worker(1)
+    # cross-shard freshen: shard 1 holds the warmth, so arrivals route
+    # there; a prediction fired on shard 0 is placed on shard 1 as well
+    for th in w1.prewarm(FABRIC_NAME, provision=True):
+        th.join()
+    check(cluster.route(FABRIC_NAME) == 1,
+          f"warm shard 1 is not the route: {cluster.route(FABRIC_NAME)}")
+    before = [w.pool(FABRIC_NAME).stats()["prewarm_dispatches"]
+              for w in (w0, w1)]
+    check(w0.scheduler._dispatch_freshen(Prediction(
+        FABRIC_NAME, probability=1.0, expected_delay=0.05)),
+        "the predicted freshen was not dispatched")
+    after = [w.pool(FABRIC_NAME).stats()["prewarm_dispatches"]
+             for w in (w0, w1)]
+    check(cluster.stats()["cross_freshens"] == 1
+          and after == [before[0], before[1] + 1],
+          f"the freshen did not land on shard 1: {before} -> {after}")
+    deadline = time.monotonic() + 60
+    while w1.warm_idle(FABRIC_NAME) == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)                      # the freshen finishing
+    s1 = eng.platform_stats()[f"shard1/{FABRIC_NAME}"]
+    routed1 = cluster.stats()["routed"][1]
+    res = eng.invoke(FABRIC_NAME, prompts[0], freshen_successors=False)
+    n_req += 1
+    s1b = eng.platform_stats()[f"shard1/{FABRIC_NAME}"]
+    check(cluster.stats()["routed"][1] == routed1 + 1,
+          "the request after the freshen was not routed to shard 1")
+    check(s1b["inline"] == s1["inline"] == 0
+          and s1b["warm_acquires"] == s1["warm_acquires"] + 1,
+          f"shard 1 ran the request with inline work: {s1} -> {s1b}")
+    check(np.array_equal(res["logits"], want[0]),
+          "shard 1's logits differ from one scheduler's")
+    out["cross_freshen"] = {"prewarm_dispatches": after,
+                            "shard1_inline": s1b["inline"]}
+    # 16 concurrent requests through the router
+    t0 = time.perf_counter()
+    futs = [eng.submit(FABRIC_NAME, p, freshen_successors=False)
+            for p in prompts]
+    results = [f.result(timeout=300) for f in futs]
+    out["sharded_16_ms"] = _ms_since(t0)
+    n_req += len(futs)
+    for i, r in enumerate(results):
+        check(np.array_equal(r["logits"], want[i]),
+              f"sharded request {i}: logits differ from one scheduler's")
+    out["routed"] = dict(cluster.stats()["routed"])
+    # grow to three shards: the new one serves the endpoint
+    check(eng.scale_shards(3) == 3, "scale_shards(3)")
+    new = max(w.shard_id for w in cluster.workers)
+    res = cluster.worker(new).invoke(FABRIC_NAME, {"tokens": prompts[1]},
+                                     freshen_successors=False)
+    n_req += 1
+    check(np.array_equal(res["logits"], want[1]),
+          f"new shard {new}'s logits differ from one scheduler's")
+    out["per_shard"] = {k: v for k, v in eng.platform_stats().items()
+                        if k.startswith("shard")}
+    # drain back to one shard with requests in flight: none is lost
+    futs = [eng.submit(FABRIC_NAME, p, freshen_successors=False)
+            for p in prompts[:8]]
+    n_req += len(futs)
+    t0 = time.perf_counter()
+    check(eng.scale_shards(1, drain=True) == 1, "scale_shards(1)")
+    out["drain_ms"] = _ms_since(t0)
+    for i, f in enumerate(futs):
+        check(np.array_equal(f.result(timeout=300)["logits"], want[i]),
+              f"request {i} in flight across the drain: logits differ")
+    check([w.shard_id for w in cluster.workers] == [0],
+          f"live shards after the drain: {cluster.workers}")
+    count = eng.latency_summary("serving")["count"]
+    check(count == n_req, f"latency_summary counts {count} of {n_req}")
+    out["launches"] = _counts(ops)            # ... and ends here
+    want_k = _times(per_fwd, n_req + n_warm[0])
+    check(out["launches"] == want_k,
+          f"sharded launches {out['launches']} != {want_k} ({n_req} "
+          f"requests, {n_warm[0]} warm-up forwards)")
+    out.update(requests=n_req, warmups=n_warm[0], latency_count=count,
+               peak_memory=torch.cuda.max_memory_allocated())
+    log(f"fabric sharded: {n_req} requests, {n_warm[0]} warm-up forwards, "
+        f"K1 {out['launches']['flash_attention']} launches "
+        f"({cfg.n_layers} per forward); routed {out['routed']}; 16 "
+        f"concurrent requests {out['sharded_16_ms']:.1f} ms; drain 3 -> 1 "
+        f"{out['drain_ms']:.1f} ms with 8 in flight; logits bit for bit "
+        f"one scheduler's; latency_summary count {count}; cross-shard "
+        f"freshen: prewarm dispatches {before} -> {after}, shard 1 served "
+        f"the next request with inline 0")
+    for key, st in sorted(out["per_shard"].items()):      # before the drain
+        log(f"  {key}: cold_starts {st['cold_starts']}, warm_acquires "
+            f"{st['warm_acquires']}, prewarm_dispatches "
+            f"{st['prewarm_dispatches']}, inline {st['inline']}, freshened "
+            f"{st['freshened']}")
+    eng.close()
+    del ep, eng, cluster, results, futs, res
+    torch.cuda.empty_cache()
+
+    # ---- (c) out of process ------------------------------------------------
+    os.environ[FABRIC_STORE_ENV] = store_root
+    for backend in ("subprocess", "snapshot"):
+        engb = ServingEngine()
+        engines.append(engb)
+        t0 = time.perf_counter()
+        rt = engb.deploy(endpoint(spec_ref=FABRIC_SPEC_REF),
+                         pool_config=pool_cfg, backend=backend)
+        deploy_ms = _ms_since(t0)
+        c0 = _counts(ops)
+        seq = fabric_sequence(np, engb, rt, prompts[0], backend)
+        check(_counts(ops) == c0, f"{backend}: a kernel launched in this "
+              f"process, not in the instance")
+        cold, fresh, warm = seq["cold"], seq["fresh"], seq["warm"]
+        pid = cold["pid"]
+        check(pid != os.getpid() and fresh["pid"] == warm["pid"] == pid,
+              f"{backend}: pids {pid}, {fresh['pid']}, {warm['pid']} "
+              f"(this process {os.getpid()})")
+        check(cold["nvcc_built"] == [], f"{backend}: the instance ran nvcc "
+              f"for {cold['nvcc_built']}")
+        check(cold["launches"] == _times(per_fwd, 2)
+              and _delta(cold["launches"], fresh["launches"])
+              == _times(per_fwd, 2)
+              and _delta(fresh["launches"], warm["launches"]) == per_fwd,
+              f"{backend} instance launches: cold {cold['launches']}, "
+              f"freshened {fresh['launches']}, warm {warm['launches']}")
+        err, ok = _bf16_close(np, warm["logits"], want[0])
+        check(ok, f"{backend}: logits differ from the thread backend's by "
+              f"{err}")
+        check(np.array_equal(warm["logits"].argmax(-1), want[0].argmax(-1)),
+              f"{backend}: argmax tokens differ from the thread backend's")
+        bits = bool(np.array_equal(warm["logits"], want[0]))
+        pool = engb.scheduler.pool(FABRIC_NAME)
+        stats = engb.platform_stats()[FABRIC_NAME]
+        check(stats["backend"] == backend,
+              f"the pool's stats name {stats['backend']}")
+        row = {"deploy_ms": deploy_ms, "cold_ms": seq["cold_ms"],
+               "freshen_ms": seq["freshen_ms"],
+               "freshened_ms": seq["freshened_ms"], "warm_ms": seq["warm_ms"],
+               "measured_cold_start_s": pool.measured_cold_start(),
+               "worker_init_s": rt.backend.worker_init_seconds,
+               "cold_timing": cold["timing"], "pid": pid,
+               "launches": warm["launches"], "bit_equal": bits,
+               "max_abs_err": err,
+               **{k: cold[k] for k in ("import_torch_s", "import_s",
+                                       "cuda_context_s", "memory_reserved",
+                                       "max_memory_allocated")}}
+        pids = [pid]
+        if backend == "subprocess":
+            row["spawn_s"] = rt.backend.spawn_seconds
+            start = f"spawn and load {row['spawn_s'] * 1e3:.1f} ms"
+        else:
+            tpl = pool.template
+            row.update(fork_s=rt.backend.fork_seconds,
+                       restore_s=rt.backend.restore_seconds,
+                       template_boot_s=tpl.template_boot_seconds,
+                       template_probe_s=tpl.first_boot_seconds,
+                       working_set=len(tpl.working_set))
+            check(cold["pid_at_spec"] == tpl.template_pid,
+                  f"the spec was built in {cold['pid_at_spec']}, not in the "
+                  f"template {tpl.template_pid}")
+            pids.append(tpl.template_pid)
+            start = (f"fork {row['fork_s'] * 1e3:.1f} ms (template boot "
+                     f"{row['template_boot_s'] * 1e3:.1f} ms once, with its "
+                     f"probe {row['template_probe_s'] * 1e3:.1f} ms; "
+                     f"{row['working_set']} modules prefetched)")
+        out["backends"][backend] = row
+        engb.close()
+        left = _wait_gone(pids)
+        check(not left, f"{backend}: processes {left} still run after close")
+        t = row["cold_timing"]
+        log(f"fabric {backend}: pid {pid}; measured cold start "
+            f"{row['measured_cold_start_s'] * 1e3:.1f} ms = {start} + init "
+            f"{row['worker_init_s'] * 1e3:.1f} ms (CUDA context "
+            f"{row['cuda_context_s'] * 1e3:.1f} ms); import torch "
+            f"{row['import_torch_s'] * 1e3:.1f} ms, with repro_torch "
+            f"{row['import_s'] * 1e3:.1f} ms"
+            + (" (in the template)" if backend == "snapshot" else "")
+            + f"; cold invoke {row['cold_ms']:.1f} ms: weights "
+            f"{t['weights'] * 1e3:.1f}, kernel library "
+            f"{t['compile'] * 1e3:.1f}, warm-up {t['warmup'] * 1e3:.1f}, "
+            f"execute {t['execute'] * 1e3:.1f}")
+        log(f"fabric {backend}: freshen {row['freshen_ms']:.1f} ms, "
+            f"freshened invoke {row['freshened_ms']:.1f} ms (inline 0), warm "
+            f"invoke {row['warm_ms']:.1f} ms; instance memory reserved "
+            f"{row['memory_reserved'] / 1e9:.3f} GB, peak allocated "
+            f"{row['max_memory_allocated'] / 1e9:.3f} GB; K1 "
+            f"{row['launches']['flash_attention']} launches in the instance; "
+            f"logits vs thread backend max |diff| {err:.3e}, bit for bit "
+            f"{bits}")
+    th = out["backends"]["thread"]
+    log(f"fabric thread: deploy {th['deploy_ms']:.1f} ms, cold invoke "
+        f"{th['cold_ms']:.1f} ms (timing "
+        f"{json.dumps({k: round(v * 1e3, 2) for k, v in th['cold_timing'].items()})}"
+        f" ms), freshen {th['freshen_ms']:.1f} ms, freshened invoke "
+        f"{th['freshened_ms']:.1f} ms, warm invoke {th['warm_ms']:.1f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase train: the port's training entry point on the card
 # K1b's shapes: (label, B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap,
 # scale, q_offset, types).  qwen2's training shape, gemma2's softcap at dh
@@ -2208,7 +2657,7 @@ def phase_train(torch, np, ops, ref):
 
 
 # ---------------------------------------------------------------------------
-# phase 9
+# phase times
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -2479,7 +2928,7 @@ def main(argv=None) -> int:
     # out, so the next one starts with the card's memory free
     for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
                      ("moe", phase_moe), ("mla", phase_mla),
-                     ("xlstm", phase_xlstm)):
+                     ("xlstm", phase_xlstm), ("fabric", phase_fabric)):
         if name not in phases:
             continue
         tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -2513,6 +2962,12 @@ def main(argv=None) -> int:
             f"decode device idle share under the profiler "
             f"{r['profile'].get('decode_idle_share', 'not measured')}"
             + (f", MoE share of device time {moe_share}" if moe_share else ""))
+    for backend, r in results["fabric"]["backends"].items():
+        log(f"e2e qwen2-0.5b on the {backend} backend: cold invoke "
+            f"{r['cold_ms']:.3f} ms, freshened invoke {r['freshened_ms']:.3f} "
+            f"ms, warm invoke {r['warm_ms']:.3f} ms"
+            + (f", measured cold start {r['measured_cold_start_s'] * 1e3:.3f}"
+               f" ms" if "measured_cold_start_s" in r else ""))
     tr = results["train"]
     qtr, rtr = (tr["full"][a] for a in ("qwen2-0.5b", "recurrentgemma-2b"))
     for arch, t, shares in (("qwen2-0.5b", qtr, ("k1b", "k1")),
@@ -2532,6 +2987,7 @@ def main(argv=None) -> int:
     # K3b the recurrentgemma training run; each path's own counts are
     # beside it
     paths = {tag: results[key]["launches"] for key, tag in PATHS}
+    paths["qwen2-0.5b fabric"] = results["fabric"]["launches"]
     paths["qwen2-0.5b train"] = qtr["launches"]
     paths["recurrentgemma-2b train"] = rtr["launches"]
     train_path = {"flash_attention_bwd": "qwen2-0.5b train",

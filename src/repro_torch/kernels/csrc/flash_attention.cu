@@ -595,15 +595,18 @@ cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
   if (fn == nullptr) return cudaErrorNotSupported;
   return with_bf16_tile(p.dh, p.dv, [&](auto tile) {
     using T = decltype(tile);
+    // A runtime call first: it makes the device's primary context current
+    // in this thread.  cuTensorMapEncodeTiled fails without one, and a
+    // pool or router thread may reach K1 before any other CUDA call.
+    auto kernel = flash_wgmma_kernel<T::DHT, T::DVT, T::KN, T::MINB>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)T::SMEM);
+    if (err != cudaSuccess) return err;
     CUtensorMap tq, tk, tv;
     if (!encode_map(fn, &tq, p.q, p.dh, p.Hq, p.Sq, p.B, p.q_sh, p.q_ss, p.q_sb, WG_BM) ||
         !encode_map(fn, &tk, p.k, p.dh, p.Hkv, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb, T::KN) ||
         !encode_map(fn, &tv, p.v, p.dv, p.Hkv, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb, T::KN))
       return cudaErrorInvalidValue;
-    auto kernel = flash_wgmma_kernel<T::DHT, T::DVT, T::KN, T::MINB>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)T::SMEM);
-    if (err != cudaSuccess) return err;
     const dim3 grid((p.Sq + WG_BM - 1) / WG_BM, p.Hq, p.B);
     kernel<<<grid, WG_NT, T::SMEM, stream>>>(tq, tk, tv, p);
     return cudaGetLastError();

@@ -290,6 +290,13 @@ template <int C>
 cudaError_t launch(const void* a, const void* b, int B, int64_t a_sb, int64_t a_ss,
                    int64_t b_sb, int64_t b_ss, const ScanParams& p, cudaStream_t stream) {
   constexpr int T = STAGE_BYTES / (2 * 4 * C);
+  // A runtime call first: it makes the device's primary context current
+  // in this thread.  cuTensorMapEncodeTiled fails without one, and a
+  // pool or router thread may reach K3 before any other CUDA call.
+  const size_t smem = smem_bytes(p.stages);
+  cudaError_t err = cudaFuncSetAttribute(rglru_scan_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   CUtensorMap ta, tb, ty;
@@ -297,10 +304,6 @@ cudaError_t launch(const void* a, const void* b, int B, int64_t a_sb, int64_t a_
       !encode_map(fn, &tb, b, B, p.S, p.r, b_sb, b_ss, C, T) ||
       !encode_map(fn, &ty, p.y, B, p.S, p.r, p.y_sb, p.y_ss, C, T))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(p.stages);
-  cudaError_t err = cudaFuncSetAttribute(rglru_scan_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((p.r + C - 1) / C, B);
   rglru_scan_kernel<C><<<grid, C, smem, stream>>>(ta, tb, ty, p);
   return cudaGetLastError();

@@ -11,15 +11,22 @@ A ``ModelEndpoint`` is the paper's λ (Algorithm 1):
         return compiled(params, tokens)
 
 Weights and the "executable" are separate plan entries, so a new weight
-version swaps in without rebuilding anything.  Endpoints run on the
-device they were built for (``device="cuda"`` by default) and on the
-scheduler's thread backend: CUDA state does not survive the snapshot
-backend's ``fork``, so out-of-process endpoints and multi-shard
-placement raise ``NotImplementedError`` naming their ROADMAP.md items.
+version swaps in without rebuilding anything.  An endpoint keeps the
+device it was asked for (``device="cuda"`` by default) and resolves it
+only when an instance builds its plan, in the instance's own thread:
+a shard pinned to a card runs the plan under that card's
+``torch.cuda.device``, and an endpoint built in a snapshot template
+leaves CUDA untouched there, so every instance forked from it starts
+its own CUDA context.  ``ServingEngine`` serves from one scheduler or,
+with ``deploy(shards=N>1 | elastic=True)``, across the sharded fabric
+(``repro_torch.cluster``); ``deploy(backend="subprocess"|"snapshot")``
+runs instances out of process, rebuilt in each worker from the
+endpoint's ``spec_ref``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -32,15 +39,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.freshen import Action, FreshenPlan, PlanEntry
 from repro_torch.core.runtime import FunctionSpec, RunContext, Runtime
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import make_model
+from repro_torch.models import Model, make_model
 from repro_torch.serving.batching import EndpointBatcher, pad_batch
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.weights import WeightStore
 from repro_torch.specs import TensorSpec
-
-PLACEMENT_ITEM = "ROADMAP.md module item 7 (placement: cluster router/worker)"
-OUT_OF_PROCESS_ITEM = ("ROADMAP.md module item 10 (out-of-process model "
-                       "endpoints)")
 
 
 @dataclass
@@ -72,11 +75,22 @@ class ModelEndpoint:
                  datastore=None, prefetch_key: Optional[str] = None,
                  prefetch_ttl: Optional[float] = None,
                  warm_budget: Optional[WarmBudget] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 spec_ref: Optional[str] = None):
         self.name = name
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.model = make_model(cfg, device=self.device)
+        # the device as asked for: resolving it touches CUDA, so it is
+        # resolved when an instance builds its plan (``device``), never
+        # here, where a snapshot template may be building the endpoint
+        self.requested_device = device
+        # the model on the CPU touches no CUDA: it gives the parameter
+        # and cache specs, and checks the block kinds at construction.
+        # One Model per resolved device: instances on different shards
+        # share this endpoint object
+        shapes = make_model(cfg, device="cpu")
+        self._shapes = shapes
+        self._models: Dict[torch.device, Model] = {shapes.device: shapes}
+        self._models_lock = threading.Lock()
         self.store = store
         self.executor = executor or Executor()
         self.batch_size = batch_size
@@ -86,11 +100,31 @@ class ModelEndpoint:
         self.prefetch_key = prefetch_key
         self.prefetch_ttl = prefetch_ttl
         self.warm_budget = warm_budget or WarmBudget(min_repetitions=0)
+        # "module:attr" the subprocess and snapshot backends' workers
+        # import to rebuild this endpoint's FunctionSpec (endpoint state
+        # does not pickle); None keeps the endpoint thread-backend-only
+        self.spec_ref = spec_ref
         self.timings: List[dict] = []
 
+    @property
+    def device(self) -> torch.device:
+        """The device an instance runs on: the requested one, resolved in
+        the calling thread, under the ``torch.cuda.device`` a pinned shard
+        set.  Raises on a host without CUDA unless ``device="cpu"`` was
+        asked."""
+        return resolve_device(self.requested_device)
+
+    def model_for(self, device: torch.device) -> Model:
+        with self._models_lock:
+            model = self._models.get(device)
+            if model is None:
+                model = self._models[device] = make_model(self.cfg,
+                                                          device=device)
+            return model
+
     # ------------------------------------------------------------------
-    def _score_fn(self):
-        model = self.model
+    def _score_fn(self, device: torch.device):
+        model = self.model_for(device)
 
         def score(params, tokens):
             x, _ = model.forward(params, tokens)
@@ -98,7 +132,7 @@ class ModelEndpoint:
         return score
 
     def _params_spec(self):
-        return self.model.param_specs()
+        return self._shapes.param_specs()
 
     def _tokens_spec(self, seq: int) -> TensorSpec:
         return TensorSpec((self.batch_size, seq), torch.int32)
@@ -116,6 +150,12 @@ class ModelEndpoint:
     # ------------------------------------------------------------------
     # The freshen plan: ordered resources, §3.3 fr_state indices 0..3
     def build_plan(self, runtime: Runtime) -> FreshenPlan:
+        # the endpoint's first CUDA call: the instance resolves its device
+        # and builds the model for it when it initializes (deploy's eager
+        # init surfaces a host without CUDA), never in a snapshot
+        # template.  The entries resolve it again where they run, which a
+        # pinned shard wraps in its torch.cuda.device.
+        self.model_for(self.device)
         entries = [
             PlanEntry("weights", Action.FETCH, self._load_weights,
                       version_fn=lambda: self.store.version(self.name)),
@@ -135,9 +175,10 @@ class ModelEndpoint:
         return params
 
     def _compile(self):
+        dev = self.device
         compiled, dt = self.executor.compile(
-            f"{self.name}/score", self._score_fn(), self._specs(),
-            device=self.device)
+            f"{self.name}/score", self._score_fn(dev), self._specs(),
+            device=dev)
         return compiled
 
     def _warmup(self):
@@ -147,13 +188,14 @@ class ModelEndpoint:
         compiled = self.executor.get(f"{self.name}/score", self._specs())
         if compiled is None:
             compiled = self._compile()
-        return self.executor.warmup(compiled, self._specs())
+        return self.executor.warmup(compiled, self._specs(),
+                                    device=self.device)
 
     # ------------------------------------------------------------------
     # Decode sessions: the KV cache is a freshen-preallocatable resource
     # (the paper's buffer/CWND-warming analogue for serving state).
     def _decode_fns(self, max_len: int):
-        model = self.model
+        model = self.model_for(self.device)
 
         def prefill(params, tokens, cache):
             return model.prefill(params, tokens, max_len=max_len, cache=cache)
@@ -163,25 +205,27 @@ class ModelEndpoint:
         return prefill, decode
 
     def _compile_decode(self, max_len: int):
+        dev = self.device
         params_spec = self._params_spec()
-        cache_spec = self.model.cache_specs(self.batch_size, max_len)
+        cache_spec = self._shapes.cache_specs(self.batch_size, max_len)
         prefill, decode = self._decode_fns(max_len)
         c_pre, _ = self.executor.compile(
             f"{self.name}/prefill{max_len}", prefill,
             (params_spec, self._tokens_spec(self.seq_len), cache_spec),
-            device=self.device)
+            device=dev)
         c_dec, _ = self.executor.compile(
             f"{self.name}/decode{max_len}", decode,
             (params_spec, cache_spec, self._tokens_spec(1),
              TensorSpec((self.batch_size,), torch.int32)),
-            device=self.device)
+            device=dev)
         return c_pre, c_dec
 
     def _prealloc_session(self, max_len: int):
         """Allocate (for real) the decode cache buffers ahead of time."""
-        cache = self.model.init_cache(self.batch_size, max_len)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        dev = self.device
+        cache = self.model_for(dev).init_cache(self.batch_size, max_len)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         return cache
 
     def session_plan_entries(self, max_len: int):
@@ -243,7 +287,8 @@ class ModelEndpoint:
 
     def spec(self) -> FunctionSpec:
         return FunctionSpec(self.name, self.code,
-                            plan_factory=self.build_plan, app=self.app)
+                            plan_factory=self.build_plan, app=self.app,
+                            ref=self.spec_ref)
 
 
 class ServingEngine:
@@ -254,11 +299,16 @@ class ServingEngine:
     requests admitted via ``submit`` fan out across warm instances, scale
     the pool up under queue pressure, and are prewarmed by
     predicted-successor freshen dispatch.  ``deploy`` eagerly initializes
-    the primary instance; additional instances cold-start on demand.
-    This slice serves from one scheduler (one shard, thread backend)."""
+    the primary instance (the seed-era warm container); additional
+    instances cold-start on demand."""
 
-    def __init__(self, scheduler=None, tracer=None):
+    def __init__(self, scheduler=None, router_policy: str = "warmth-aware",
+                 spill_timeout: Optional[float] = None,
+                 tracer=None):
         from repro_torch.core.scheduler import FreshenScheduler
+        # one tracer for the whole engine: the base scheduler and (if a
+        # fabric is built) every shard share it, so exported traces show
+        # the full request path regardless of placement
         self.scheduler = scheduler or FreshenScheduler(tracer=tracer)
         if tracer is not None and not self.scheduler.tracer.enabled:
             self.scheduler.tracer = tracer
@@ -268,6 +318,13 @@ class ServingEngine:
         # ``batch_size=``: single requests admitted via submit_request are
         # formed into batches and run as ONE pooled invocation each
         self.batchers: Dict[str, EndpointBatcher] = {}
+        # the sharded fabric (repro_torch.cluster), created lazily by the
+        # first deploy(..., shards=N>1); single-scheduler deploys are
+        # untouched
+        self.cluster = None
+        self.router_policy = router_policy
+        self.spill_timeout = spill_timeout
+        self._clustered: set = set()          # endpoint names on the fabric
 
     def _default_pool_config(self):
         # model endpoints hold weight loads and kernel builds: a generic
@@ -277,14 +334,52 @@ class ServingEngine:
         return dataclasses.replace(self.scheduler.pool_config,
                                    keep_alive=600.0)
 
+    def _ensure_cluster(self, shards: int, elastic: bool = False):
+        if self.cluster is None:
+            from repro_torch.cluster import ClusterRouter
+            # the fabric shares the engine scheduler's predictor:
+            # prediction (chains, periodicity) is global knowledge, so
+            # chain() and trace priming keep working unchanged
+            self.cluster = ClusterRouter.build(
+                shards, policy=self.router_policy,
+                pool_config=self.scheduler.pool_config,
+                predictor=self.scheduler.predictor,
+                spill_timeout=self.spill_timeout,
+                tracer=self.tracer if self.tracer.enabled else None)
+        elif shards > self.cluster.num_shards:
+            if not elastic:
+                raise ValueError(
+                    f"cluster already built with {self.cluster.num_shards} "
+                    f"shards; deploy the widest endpoint first (asked for "
+                    f"{shards}) or pass elastic=True to grow the fleet")
+            while self.cluster.num_shards < shards:
+                self.cluster.add_worker()
+        return self.cluster
+
     def scale_shards(self, n: int, drain: bool = True) -> int:
-        """The live shard count; this slice has exactly one."""
+        """Resize the sharded fabric to ``n`` shards at runtime.
+
+        Growing replays every *elastic* endpoint's registration onto the
+        new shards (``ClusterRouter.add_worker``); fixed-width deploys
+        (``elastic=False``) keep their width.  Shrinking drains the
+        newest shards first — warm endpoints are prewarm-provisioned onto
+        survivors and in-flight requests complete before each shard shuts
+        down.  Builds the fabric on first use so ``scale_shards`` can
+        precede the first sharded ``deploy``.  Returns the live shard
+        count."""
         if n < 1:
             raise ValueError(f"a fabric needs at least one shard (got {n})")
-        if n > 1:
-            raise NotImplementedError(
-                f"multi-shard serving is not ported yet: {PLACEMENT_ITEM}")
-        return 1
+        if self.cluster is None:
+            if n == 1:
+                return 1              # the base scheduler is the one shard
+            self._ensure_cluster(n)
+            return self.cluster.num_shards
+        while self.cluster.num_shards < n:
+            self.cluster.add_worker()
+        while self.cluster.num_shards > n:
+            victim = max(w.shard_id for w in self.cluster.workers)
+            self.cluster.remove_worker(victim, drain=drain)
+        return self.cluster.num_shards
 
     def deploy(self, ep: ModelEndpoint, pool_config=None,
                shards: Optional[int] = None,
@@ -293,27 +388,72 @@ class ServingEngine:
                graded_warmth: Optional[bool] = None,
                batch_size: Optional[int] = None,
                batch_max_wait: float = 0.01) -> Runtime:
-        """Register an endpoint on the scheduler and initialize its
-        primary instance.  ``graded_warmth`` and ``batch_size`` behave as
-        in the reference; ``shards > 1``, ``elastic`` and out-of-process
-        ``backend``s raise ``NotImplementedError``."""
-        if elastic or (shards is not None and shards > 1):
-            raise NotImplementedError(
-                f"sharded/elastic deploys are not ported yet: {PLACEMENT_ITEM}")
-        if backend not in (None, "thread"):
-            raise NotImplementedError(
-                f"backend {backend!r}: model endpoints run on the thread "
-                f"backend in this slice; {OUT_OF_PROCESS_ITEM}")
+        """Register an endpoint; with ``shards=N`` (N>1) it joins the
+        sharded fabric: one ``InstancePool`` per shard behind the
+        ``ClusterRouter`` (lazily built at the first sharded deploy),
+        warmth-aware routing and cross-shard freshen included.  Only the
+        shard-0 primary is eagerly initialized — the other shards warm up
+        on demand or by prewarm, which is the point of the fabric.
+
+        ``backend`` selects the instance backend
+        (repro_torch.core.backend): ``"subprocess"`` runs each instance
+        in its own worker process, so a cold start is measured
+        interpreter, ``import torch``, CUDA context, weights and kernel
+        library; ``"snapshot"`` forks instances from a pre-warmed
+        per-pool template process (interpreter and imports done, CUDA
+        untouched), so a cold start is fork plus the rest.  A
+        ``ModelEndpoint``'s spec closes over live endpoint state, so
+        out-of-process deploys need ``spec_ref`` (``"module:attr"``, a
+        factory the worker imports and calls to rebuild the spec);
+        without it the pool raises ``BackendError`` naming
+        ``FunctionSpec.ref``.
+
+        ``elastic=True`` makes the deploy fleet-elastic: asking for more
+        shards than the fabric currently has grows it (instead of
+        raising), and the endpoint registers cluster-wide — every shard
+        the fleet ever grows to (``add_worker`` / ``scale_shards``)
+        serves it too.  With ``shards`` omitted an elastic deploy joins
+        the fabric at its current size (building a 1-shard fabric when
+        none exists yet) rather than silently staying on the base
+        scheduler.
+
+        ``graded_warmth=True`` turns on the SPES-style warmth ladder for
+        the endpoint's pools: keep-alive expiry demotes instances one
+        warmth rung at a time (HOT -> INITIALIZED -> PROCESS) instead of
+        reaping outright, and prewarm depth follows prediction
+        confidence.  ``None`` (default) keeps the pool config's own
+        setting.
+
+        ``batch_size=N`` installs a pool-aware ``EndpointBatcher`` in
+        front of the endpoint: single token rows admitted through
+        ``submit_request`` are formed into adaptively-sized batches
+        (never larger than N, the queue depth, or the fabric's current
+        idle capacity) and each batch runs as ONE pooled invocation.
+        N is clamped to the endpoint's compiled batch shape (padding
+        covers partial fills; slicing beyond it cannot)."""
         self.endpoints[ep.name] = ep
         if pool_config is None:
             pool_config = self._default_pool_config()
-        if pool_config.backend != "thread":
-            raise NotImplementedError(
-                f"pool backend {pool_config.backend!r}: {OUT_OF_PROCESS_ITEM}")
+        if backend is not None:
+            pool_config = dataclasses.replace(pool_config, backend=backend)
         if graded_warmth is not None:
             pool_config = dataclasses.replace(pool_config,
                                               graded_warmth=graded_warmth)
-        rt = self.scheduler.register(ep.spec(), config=pool_config)
+        if elastic or (shards is not None and shards > 1):
+            cluster = self._ensure_cluster(max(shards or 1, 1),
+                                           elastic=elastic)
+            # elastic churn leaves live shard ids non-contiguous (ids are
+            # never reused), so a fixed-width deploy takes the N lowest
+            # live ids, not range(N)
+            runtimes = cluster.register(
+                ep.spec(), config=pool_config,
+                # None = cluster-wide: elastic endpoints follow the fleet
+                shards=None if elastic else sorted(
+                    w.shard_id for w in cluster.workers)[:shards])
+            self._clustered.add(ep.name)
+            rt = min(runtimes.items())[1]
+        else:
+            rt = self.scheduler.register(ep.spec(), config=pool_config)
         rt.init()
         if batch_size is not None:
             self._install_batcher(ep, batch_size, batch_max_wait)
@@ -321,6 +461,11 @@ class ServingEngine:
 
     # -- pool-aware batching --------------------------------------------
     def _idle_capacity(self, name: str) -> int:
+        """The fabric signal the endpoint batcher sizes against: idle
+        instances plus cap headroom, summed across shards when the
+        endpoint lives on the cluster."""
+        if self.cluster is not None and name in self._clustered:
+            return sum(w.idle_capacity(name) for w in self.cluster.workers)
         pool = self.scheduler.pools.get(name)
         return pool.idle_capacity() if pool is not None else 0
 
@@ -335,10 +480,14 @@ class ServingEngine:
             fill = len(payloads)
             tokens = pad_batch([np.asarray(p, np.int32) for p in payloads],
                                ep.batch_size)
-            span = self.tracer.invocation(ep.name, app=ep.app,
-                                          batch=True, fill=fill)
-            inner = self.scheduler.submit(ep.name, {"tokens": tokens},
-                                          _span=span)
+            target = self._target(ep.name)
+            if target is self.scheduler:
+                span = self.tracer.invocation(ep.name, app=ep.app,
+                                              batch=True, fill=fill)
+                inner = self.scheduler.submit(ep.name, {"tokens": tokens},
+                                              _span=span)
+            else:                        # cluster routing opens its own span
+                inner = target.submit(ep.name, {"tokens": tokens})
             out: Future = Future()
 
             def _done(f: Future):
@@ -368,14 +517,20 @@ class ServingEngine:
                 f"batch_size= to enable single-request admission")
         return batcher.submit(tokens_row)
 
+    def _target(self, name: str):
+        if self.cluster is not None and name in self._clustered:
+            return self.cluster
+        return self.scheduler
+
     def invoke(self, name: str, tokens, freshen_successors: bool = True):
-        return self.scheduler.invoke(
+        return self._target(name).invoke(
             name, {"tokens": tokens}, freshen_successors=freshen_successors)
 
     def submit(self, name: str, tokens, freshen_successors: bool = True):
-        """Concurrent admission through the scheduler's router; returns a
-        Future for the endpoint result."""
-        return self.scheduler.submit(
+        """Concurrent admission through the scheduler's router (or the
+        cluster router for sharded endpoints); returns a Future for the
+        endpoint result."""
+        return self._target(name).submit(
             name, {"tokens": tokens}, freshen_successors=freshen_successors)
 
     def chain(self, names: List[str], delay: float = 0.06):
@@ -387,44 +542,68 @@ class ServingEngine:
         to the deployed endpoints: each pool whose endpoint name appears
         in the policy's history is live-reconfigured (keep-alive from the
         observed idle-time distribution, max_instances from Little's
-        law), and the policy's inter-arrival histograms seed recurrence
-        prediction so periodic endpoints self-prewarm.  Each pool's
-        *measured* cold start is passed through as the keep-alive floor,
-        so a pool is never retuned to reap faster than it can boot.
-        Returns ``{name: PoolConfig}`` for the pools that were retuned."""
+        law), on the base scheduler and on every shard, and the policy's
+        inter-arrival histograms seed recurrence prediction so periodic
+        endpoints self-prewarm.  Each pool's *measured* cold start is
+        passed through as the keep-alive floor, so a pool on a measured
+        backend (subprocess spawn, snapshot restore) is never retuned to
+        reap faster than it can boot.  Returns ``{name: PoolConfig}`` for
+        the pools that were retuned."""
         applied = {}
-        # one scheduler: the cluster's workers come with placement
-        # (ROADMAP.md module item 7)
+        schedulers = [self.scheduler]
+        if self.cluster is not None:
+            schedulers += [w.scheduler for w in self.cluster.workers]
         for name in policy.functions:
-            pool = self.scheduler.pools.get(name)
-            if pool is None:
-                continue
-            cfg = policy.pool_config(
-                name, base=pool.config, time_scale=time_scale,
-                measured_cold_start=pool.measured_cold_start())
-            self.scheduler.apply_pool_config(name, cfg)
-            applied[name] = cfg
+            for sched in schedulers:
+                pool = sched.pools.get(name)
+                if pool is None:
+                    continue
+                cfg = policy.pool_config(
+                    name, base=pool.config, time_scale=time_scale,
+                    measured_cold_start=pool.measured_cold_start())
+                sched.apply_pool_config(name, cfg)
+                applied[name] = cfg
+        # one prime covers everything: cluster workers share this predictor
         policy.prime(self.scheduler.predictor, time_scale=time_scale)
         return applied
 
     def latency_summary(self, app: str) -> dict:
+        """Merged latency view across the base scheduler and every cluster
+        shard (raw-sample merge — percentiles do not compose).  Shards
+        drained by an elastic shrink keep counting: their retained
+        ledgers are merged in, so the view never loses history."""
         from repro_torch.cluster import ClusterAccountant
-        return ClusterAccountant([self.scheduler.accountant]).latency_summary(
-            app)
+        accts = [self.scheduler.accountant]
+        if self.cluster is not None:
+            accts += [w.scheduler.accountant for w in self.cluster.workers]
+            accts += list(self.cluster.accountant.retired)
+        return ClusterAccountant(accts).latency_summary(app)
 
     def close(self, wait: bool = True):
-        """Shut the scheduler's router down (idempotent); call it in a
-        finally block so worker threads never leak.  Batchers close
-        first: their drains dispatch through the scheduler."""
+        """Shut the scheduler's router and the fabric down (idempotent);
+        call it in a finally block so worker threads and out-of-process
+        instances never leak.  Batchers close first: their drains
+        dispatch through the scheduler, which must still be alive to run
+        them."""
         for batcher in self.batchers.values():
             batcher.close()
         self.scheduler.shutdown(wait=wait)
+        if self.cluster is not None:
+            self.cluster.shutdown(wait=wait)
 
     def platform_stats(self) -> Dict[str, dict]:
-        return dict(self.scheduler.platform_stats())
+        stats = dict(self.scheduler.platform_stats())
+        if self.cluster is not None:
+            stats.update(self.cluster.platform_stats())
+        return stats
 
     def metrics_snapshot(self) -> Dict[str, object]:
+        """Unified typed-metrics dump: the base scheduler's registry plus
+        (when a fabric exists) every shard's, under ``cluster.``."""
         out = dict(self.scheduler.metrics_snapshot())
+        if self.cluster is not None:
+            for key, val in self.cluster.metrics_snapshot().items():
+                out[f"cluster.{key}"] = val
         for batcher in self.batchers.values():
             out.update(batcher.metrics_snapshot())
         return out

@@ -78,14 +78,18 @@ class Executor:
             return self._cache.get(self._key(name, specs))
 
     # ------------------------------------------------------------------
-    def warmup(self, compiled: Compiled, specs) -> float:
-        """Run the compiled step once on zeros and wait for the device:
-        warms the caching allocator, cuBLAS handles and the kernels'
-        first launches — the CWND-warming analogue."""
-        args = tensors_like_specs(specs, compiled.device)
+    def warmup(self, compiled: Compiled, specs,
+               device: Optional[DeviceLike] = None) -> float:
+        """Run the compiled step once on zeros on ``device`` (default: the
+        one it was compiled for; an endpoint shared by shards on several
+        cards warms each instance's own) and wait for the device: warms
+        the caching allocator, cuBLAS handles and the kernels' first
+        launches — the CWND-warming analogue."""
+        dev = compiled.device if device is None else torch.device(device)
+        args = tensors_like_specs(specs, dev)
         t0 = time.monotonic()
         out: Any = compiled(*args)
-        if compiled.device.type == "cuda":
-            torch.cuda.synchronize(compiled.device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         del out
         return time.monotonic() - t0

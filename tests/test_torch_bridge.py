@@ -39,7 +39,8 @@ COPIES = sorted(
     + [f"workloads/{m}.py" for m in ("__init__", "adapt", "history",
                                      "replay", "trace")]
     + ["serving/batching.py", "serving/datastore.py",
-       "cluster/accounting.py", "data/__init__.py", "data/pipeline.py"]
+       "cluster/__init__.py", "cluster/accounting.py", "cluster/router.py",
+       "data/__init__.py", "data/pipeline.py"]
     + [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")])
 
 

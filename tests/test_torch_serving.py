@@ -206,17 +206,21 @@ def test_submit_request_batches_rows(setup):
 
 
 def test_unported_placement_and_backends_raise(setup):
+    """Placement and out-of-process endpoints are ported; what still
+    raises is a shard's device mesh (ROADMAP.md module item 7b), an
+    out-of-process endpoint without ``spec_ref``, and a fabric of no
+    shards."""
+    from repro_torch.core import BackendError
     cfg, _, store, _, _ = setup
     eng = ServingEngine()
     try:
-        with pytest.raises(NotImplementedError, match="placement"):
-            eng.deploy(_ep(cfg, store), shards=2)
-        with pytest.raises(NotImplementedError, match="placement"):
-            eng.deploy(_ep(cfg, store), elastic=True)
-        with pytest.raises(NotImplementedError, match="out-of-process"):
+        with pytest.raises(BackendError, match="FunctionSpec.ref"):
             eng.deploy(_ep(cfg, store), backend="snapshot")
-        with pytest.raises(NotImplementedError, match="placement"):
-            eng.scale_shards(2)
+        assert eng.scale_shards(2) == 2
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            eng.cluster.workers[0].mesh()
+        with pytest.raises(ValueError, match="at least one shard"):
+            eng.scale_shards(0)
         assert eng.scale_shards(1) == 1
     finally:
         eng.close()
@@ -226,8 +230,18 @@ def test_endpoint_defaults_to_cuda_and_refuses_cpu_fallback(setup):
     cfg, _, store, _, _ = setup
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is usable")
+    # building the endpoint touches no CUDA (a snapshot template builds
+    # it before forking); the device resolves, and refuses, when an
+    # instance builds its plan, which deploy's eager init does
+    ep = ModelEndpoint("tiny", cfg, store, Executor())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ModelEndpoint("tiny", cfg, store, Executor())
+        ep.device
+    eng = ServingEngine()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            eng.deploy(ep)
+    finally:
+        eng.close()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         store.load("tiny")
 
