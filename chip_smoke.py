@@ -21,7 +21,9 @@ Phases, each of which raises on failure (exit code 1):
    / dv 128 at 16/16 heads with v a strided view of the latent
    expansion, as the model hands it over): the
    attention kernels K1/K2 in float32 (atol/rtol 2e-5, TF32 off) and
-   bfloat16 (3e-2), the RG-LRU scan K3 in float32 bit for bit (max error
+   bfloat16 (3e-2), also (with K1b) at the heads one rank of a 2-way
+   model axis takes (qwen2 7/1, granite 8/4, recurrentgemma 5/1); the
+   RG-LRU scan K3 in float32 bit for bit (max error
    0, and within 1e-6), also at the training microbatch, on a ragged
    width, strided views, r below one tile and S around the plan's box and
    ring edges, and K3 refusing
@@ -101,8 +103,22 @@ Phases, each of which raises on failure (exit code 1):
    within the bf16 tolerance of the thread backend's with the same
    argmax, and the cold start's parts (spawn or fork, ``import torch``,
    CUDA context, weights, kernel library), the child's memory and no
-   process left after ``close``;
-10. train: the second entry point, training.  K1's float32 row
+   process left after ``close``; the phase runs in a process of its own
+   under the port's lock sanitizer (``repro_torch.analysis.sanitizer``,
+   installed before that process imports the port, so no other phase
+   runs with tracked locks): it prints the graph's size and fails on a
+   cycle or a violation;
+10. launch: the launch layer (``repro_torch.launch.steps``) on a (1, 1)
+   mesh over the card (an NCCL group of world size 1): qwen2-0.5b uncut
+   in bf16 through the sharded prefill (batch 4 x prompt 128) and 15
+   greedy decode steps, against the unsharded ``Model.prefill`` and
+   ``decode_step`` (bit for bit, or within 3e-2 with identical tokens,
+   which the phase says), K1 24 per prefill and K2 24 per decode step in
+   their own windows; the sharded train step, 2 steps of batch 4 x 1024
+   in 2 microbatches (K1 132, K1b 48 per step); each sharded step's ms
+   beside the unsharded one's; a float32 gate at 2 layers, 2 x 256: the
+   loss and every gradient leaf within 1e-4 of the unsharded ones;
+11. train: the second entry point, training.  K1's float32 row
    log-sum-exp (written only when asked for) and K1b, the flash-attention
    backward, against their plain versions in float32 and bfloat16 at
    qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
@@ -135,7 +151,7 @@ Phases, each of which raises on failure (exit code 1):
    tokens/s, peak memory and one profiled step (idle share, the shares
    of device time of K3b, K3 and K1b; trace in
    ``build/profile/train_rgemma``);
-11. times: each kernel, its plain version, the PyTorch library call and
+12. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes and a long one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s; K1b at the four training-phase shapes against the
@@ -166,7 +182,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "fabric", "train", "times")
+          "fabric", "launch", "train", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -508,10 +524,79 @@ def phase_parity(torch, ops, ref):
                                    f"cases x 2 types"}
     n_cases["rglru_scan"] = parity_rglru(torch, ops, ref, gen, errs)
     n_cases["rglru_scan_bwd"] = parity_rglru_bwd(torch, ops, ref, gen, errs)
+    errs["per_rank"] = parity_per_rank(torch, ops, ref, gen)
     for kname, e in errs.items():
+        if kname == "per_rank":
+            continue
         log(f"parity {kname}: max abs err f32 {e['float32']:.3e} "
             f"bf16 {_fmt(e['bfloat16'], '.3e')} over {n_cases[kname]}: ok")
     parity_fresh_thread(torch, ops, gen)
+    return errs
+
+
+# the heads one rank of a 2-way model axis hands the kernels: (label, Hq,
+# Hkv, dh, window, K1b too)
+PER_RANK = (("qwen2", 7, 1, 64, None, True), ("granite", 8, 4, 64, None, True),
+            ("rgemma", 5, 1, 256, 2048, False))
+
+
+def parity_per_rank(torch, ops, ref, gen):
+    """K1, K2 and K1b at the per-rank head counts of a 2-way ``model``
+    axis (``sharding.boundary`` runs each rank's kernel on its own
+    heads): qwen2 7/1 and granite 8/4 at dh 64, recurrentgemma 5/1 at dh
+    256 with its window (K1, K2), in both types at TOL; K1b's bfloat16
+    gradients also within ``BWD_BF16_SCALED_TOL`` of their largest
+    element."""
+    errs = {k: {n: 0.0 for n in BOTH} for k in
+            ("flash_attention", "decode_attention", "flash_attention_bwd")}
+    B, S, L = 4, 128, 256
+    for label, Hq, Hkv, dh, window, bwd in PER_RANK:
+        kw = dict(causal=True, window=window, softcap=None, scale=None,
+                  q_offset=0)
+        for name in BOTH:
+            dtype = getattr(torch, name)
+            q = _rand(torch, gen, (B, S, Hq, dh), dtype)
+            k = _rand(torch, gen, (B, S, Hkv, dh), dtype)
+            v = _rand(torch, gen, (B, S, Hkv, dh), dtype)
+            out, lse = ops.flash_attention.launch_kernel(
+                q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            e, ok = _err(torch, out, want, name)
+            errs["flash_attention"][name] = max(
+                errs["flash_attention"][name], e)
+            check(ok, f"per-rank K1 {label} {name}: max abs err {e}")
+            kc = _rand(torch, gen, (B, L, Hkv, dh), dtype)
+            vc = _rand(torch, gen, (B, L, Hkv, dh), dtype)
+            qd = _rand(torch, gen, (B, 1, Hq, dh), dtype)
+            pos = torch.tensor([128, 131, 140, 255], dtype=torch.int32,
+                               device="cuda")
+            got = ops.decode_attention(qd, kc, vc, pos, window=window)
+            torch.cuda.synchronize()
+            e, ok = _err(torch, got, ref.decode_attention_ref(
+                qd, kc, vc, pos, window=window), name)
+            errs["decode_attention"][name] = max(
+                errs["decode_attention"][name], e)
+            check(ok, f"per-rank K2 {label} {name}: max abs err {e}")
+            if not bwd:
+                continue
+            do = _rand(torch, gen, (B, S, Hq, dh), dtype)
+            grads = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            wants = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            for gname, a, b in zip(("dq", "dk", "dv"), grads, wants):
+                e, ok = _err(torch, a, b, name)
+                errs["flash_attention_bwd"][name] = max(
+                    errs["flash_attention_bwd"][name], e)
+                check(ok, f"per-rank K1b {label} {name} {gname}: max abs "
+                      f"err {e}")
+                scaled = e / max(float(b.float().abs().max()), 1e-30)
+                check(name != "bfloat16" or scaled <= BWD_BF16_SCALED_TOL,
+                      f"per-rank K1b {label} bf16 {gname}: {scaled:.3e}")
+    log("parity per rank (a 2-way model axis: qwen2 7/1, granite 8/4 at dh "
+        "64, recurrentgemma 5/1 at dh 256): " + ", ".join(
+            f"{k} f32 {e['float32']:.3e} bf16 {e['bfloat16']:.3e}"
+            for k, e in errs.items()) + ": ok")
     return errs
 
 
@@ -2128,6 +2213,247 @@ def phase_fabric(torch, np, ops, tmp_root, engines):
 
 
 # ---------------------------------------------------------------------------
+# phase launch: the launch layer's sharded steps on a one-card mesh
+LAUNCH_ARCH = "qwen2-0.5b"
+LAUNCH_SERVE = (4, 128, 15)             # batch, prompt, decode steps
+LAUNCH_TRAIN = (4, 1024, 2)             # batch, seq, steps
+LAUNCH_GRAD_TOL = 1e-4                  # float32 gate, absolute
+LAUNCH_REPEATS = 3
+
+
+def _timed_ms(torch, fn, n=LAUNCH_REPEATS):
+    """(median ms of ``n`` calls of ``fn``, waiting for the card after
+    each; the last call's result)."""
+    times, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times), out
+
+
+def phase_launch(torch, np, ops, tmp_root, engines):
+    """qwen2-0.5b uncut, bf16, through the launch layer's sharded steps
+    (``launch/steps.py``) on ``make_host_mesh("cuda")``, an NCCL group of
+    world size 1 ended at the phase's end: ``build_prefill_step`` on
+    batch 4 x prompt 128 and 15 greedy ``build_decode_step`` steps held
+    against the unsharded ``Model.prefill`` / ``decode_step``, bit for bit
+    or within the bf16 tolerance with identical tokens (the phase says
+    which), K1 24 per prefill and K2 24 per decode step, each in its own
+    window; ``build_train_step`` for 2 steps of batch 4 x 1024 in
+    ``TRAIN_MICROBATCHES`` microbatches, K1 132 and K1b 48 per step; each
+    sharded step's ms beside the unsharded one's (at world size 1 the
+    ratio is DTensor's host cost); then a float32 gate at 2 layers, 2 x
+    256: the sharded loss and every gradient leaf within 1e-4 of the
+    unsharded ones."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import flatten_with_paths
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import make_model
+    from repro_torch.sharding import distribute_tree
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg = get_config(LAUNCH_ARCH)
+    B, S, N = LAUNCH_SERVE
+    mesh = make_host_mesh("cuda")
+    out = {"mesh": f"{tuple(mesh.shape)} {mesh.mesh_dim_names} "
+                   f"{dist.get_backend()} world {dist.get_world_size()}"}
+    zero = dict.fromkeys(KERNEL_META, 0)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        model = make_model(cfg, device="cuda")
+        params = model.init(gen)
+        plain = make_model(cfg, device="cuda")
+        toks = torch.as_tensor(np.random.default_rng(21).integers(
+            0, cfg.vocab_size, (B, S), dtype=np.int32), device="cuda")
+        pre, pspecs, _, _ = steps.build_prefill_step(
+            model, InputShape("launch", S, B, "prefill"), mesh,
+            max_len=S + N)
+        dec, dspecs, _, _ = steps.build_decode_step(
+            model, InputShape("launch", S + N, B, "decode"), mesh)
+        p_sh = distribute_tree(params, pspecs[0])
+        batch = distribute_tree({"tokens": toks}, pspecs[1])
+
+        # ---- prefill and decode, each launch window on its own ---------
+        with torch.no_grad():
+            ops.reset_launches()
+            logits, cache = pre(p_sh, batch)
+            torch.cuda.synchronize()
+            per_pre = _counts(ops)
+            check(per_pre == dict(zero, flash_attention=cfg.n_layers),
+                  f"the sharded prefill launched {per_pre}")
+            want, wcache = plain.prefill(params, toks, max_len=S + N)
+            got = logits.full_tensor()
+            bits = [bool(torch.equal(got, want))]
+            errs = [float((got.float() - want.float()).abs().max())]
+            same_tok = True
+            tok_s = got.argmax(-1).to(torch.int32)
+            tok_p = want.argmax(-1).to(torch.int32)
+            per_dec = []
+            for t in range(N):
+                pos = torch.full((B,), S + t, dtype=torch.int32,
+                                 device="cuda")
+                ops.reset_launches()
+                logits, cache = dec(p_sh, cache,
+                                    distribute_tree(tok_s, dspecs[2]),
+                                    distribute_tree(pos, dspecs[3]))
+                torch.cuda.synchronize()
+                per_dec.append(_counts(ops))
+                want, wcache = plain.decode_step(params, wcache, tok_p, pos)
+                got = logits.full_tensor()
+                bits.append(bool(torch.equal(got, want)))
+                errs.append(float((got.float() - want.float()).abs().max()))
+                tok_s = got.argmax(-1).to(torch.int32)
+                tok_p = want.argmax(-1).to(torch.int32)
+                same_tok &= bool(torch.equal(tok_s, tok_p))
+            check(all(c == dict(zero, decode_attention=cfg.n_layers)
+                      for c in per_dec),
+                  f"the sharded decode steps launched {per_dec}")
+            bit_for_bit = all(bits)
+            check(bit_for_bit or (max(errs) <= TOL["bfloat16"]["atol"]
+                                  and same_tok),
+                  f"sharded serving against unsharded: max |diff| "
+                  f"{max(errs)}, tokens identical {same_tok}")
+            out["serve"] = dict(bit_for_bit=bit_for_bit,
+                                steps_bit_for_bit=sum(bits),
+                                max_abs_err=max(errs),
+                                tokens_identical=same_tok,
+                                prefill_launches=per_pre,
+                                decode_launches=per_dec[0])
+            # ---- host cost: sharded against unsharded -------------------
+            ms_pre, _ = _timed_ms(torch, lambda: pre(p_sh, batch))
+            ms_pre0, _ = _timed_ms(torch, lambda: plain.prefill(
+                params, toks, max_len=S + N))
+            tok_d = distribute_tree(tok_s, dspecs[2])
+            pos_d = distribute_tree(pos, dspecs[3])
+            ms_dec, _ = _timed_ms(torch, lambda: dec(p_sh, cache, tok_d,
+                                                     pos_d), n=N)
+            ms_dec0, _ = _timed_ms(torch, lambda: plain.decode_step(
+                params, wcache, tok_p, pos), n=N)
+        out["serve"].update(prefill_ms=ms_pre, prefill_plain_ms=ms_pre0,
+                            decode_step_ms=ms_dec, decode_plain_ms=ms_dec0)
+        log(f"launch serve ({LAUNCH_ARCH} uncut, bf16, mesh {out['mesh']}, "
+            f"batch {B}, prompt {S}, {N} decode steps): logits "
+            + ("bit for bit the unsharded ones at every step"
+               if bit_for_bit else
+               f"within {max(errs):.3e} of the unsharded ones "
+               f"({sum(bits)}/{N + 1} steps bit for bit), tokens identical "
+               f"{same_tok}")
+            + f"; K1 {per_pre['flash_attention']} per prefill, K2 "
+            f"{per_dec[0]['decode_attention']} per decode step; prefill "
+            f"{ms_pre:.3f} ms vs unsharded {ms_pre0:.3f} ms (ratio "
+            f"{ms_pre / ms_pre0:.3f}), decode step {ms_dec:.3f} ms vs "
+            f"{ms_dec0:.3f} ms (ratio {ms_dec / ms_dec0:.3f})")
+        del cache, wcache, logits, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- training ----------------------------------------------------
+        TB, TS, TSTEPS = LAUNCH_TRAIN
+        tstep, tspecs, _, M = steps.build_train_step(
+            model, InputShape("launch", TS, TB, "train"), mesh)
+        ustep = make_train_step(plain, OptimizerConfig(), num_microbatches=M,
+                                seq_chunk=min(512, TS))
+        rng = np.random.default_rng(22)
+        tb = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (TB, TS),
+                                              dtype=np.int32), device="cuda")
+              for k in ("tokens", "targets")}
+        opt = init_opt_state(params)
+        state = (distribute_tree(params, tspecs[0]),
+                 distribute_tree(opt, tspecs[1]))
+        tb_sh = distribute_tree(tb, tspecs[2])
+        ms_t, losses, per_step = [], [], []
+        for i in range(TSTEPS):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_new, o_new, met = tstep(*state, tb_sh)
+            losses.append(float(met["loss"].full_tensor()))
+            ms_t.append((time.perf_counter() - t0) * 1e3)
+            per_step.append(_counts(ops))
+            state = (p_new, o_new)
+        want_step = dict(zero, **{k: v for k, v in train_window(cfg, M).items()
+                                  if k in ("flash_attention",
+                                           "flash_attention_bwd")})
+        check(all(c == want_step for c in per_step),
+              f"the sharded train steps launched {per_step}, not {want_step}")
+        del state
+        gc.collect()
+        ms_u, ulosses = [], []
+        ustate = (params, opt)
+        for i in range(TSTEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_new, o_new, met = ustep(*ustate, tb)
+            ulosses.append(float(met["loss"]))
+            ms_u.append((time.perf_counter() - t0) * 1e3)
+            ustate = (p_new, o_new)
+        del ustate, p_new, o_new
+        check(all(np.isfinite(losses)), f"sharded losses {losses}")
+        out["train"] = dict(step_ms=ms_t, plain_step_ms=ms_u, losses=losses,
+                            plain_losses=ulosses, microbatches=M,
+                            launches=per_step[0])
+        log(f"launch train ({LAUNCH_ARCH} uncut, bf16, batch {TB} x {TS}, "
+            f"{M} microbatches): step ms {[round(x, 3) for x in ms_t]} vs "
+            f"unsharded {[round(x, 3) for x in ms_u]} (ratio of the last "
+            f"{ms_t[-1] / ms_u[-1]:.3f}); losses {losses} vs {ulosses}; per "
+            f"step K1 {per_step[0]['flash_attention']}, K1b "
+            f"{per_step[0]['flash_attention_bwd']}")
+        del params, p_sh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- float32 gate -------------------------------------------------
+        _no_tf32(torch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=2,
+                                    segments=((("attn",), 2),))
+        m32 = make_model(cfg32, device="cuda")
+        p32 = m32.init(torch.Generator(device="cuda").manual_seed(23))
+        gb = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 256),
+                                              dtype=np.int32), device="cuda")
+              for k in ("tokens", "targets")}
+        _, gspecs, _, _ = steps.build_train_step(
+            m32, InputShape("gate", 256, 2, "train"), mesh, microbatches=1)
+        l0, _, g0 = loss_and_grads(make_model(cfg32, device="cuda"), p32,
+                                   gb, 256)
+        l1, _, g1 = loss_and_grads(m32, distribute_tree(p32, gspecs[0]),
+                                   distribute_tree(gb, gspecs[2]), 256,
+                                   m32.constrain)
+        f0, f1 = flatten_with_paths(g0), flatten_with_paths(g1)
+        gerr = {k: float((f1[k].full_tensor() - f0[k]).abs().max())
+                for k in f0}
+        worst = max(gerr, key=gerr.get)
+        lerr = abs(float(l1.full_tensor()) - float(l0))
+        log(f"launch float32 gate ({LAUNCH_ARCH} full width, 2 layers, batch "
+            f"2 x 256): loss {float(l1.full_tensor()):.6f} vs unsharded "
+            f"{float(l0):.6f} (|diff| {lerr:.3e}); {len(gerr)} gradient "
+            f"leaves, worst |diff| {gerr[worst]:.3e} at {worst} (limit "
+            f"{LAUNCH_GRAD_TOL})")
+        check(lerr <= LAUNCH_GRAD_TOL and gerr[worst] <= LAUNCH_GRAD_TOL,
+              f"the float32 gate: loss {lerr}, {worst} {gerr[worst]}")
+        out["gate"] = dict(loss_err=lerr, grad_err=gerr[worst],
+                           worst_leaf=worst)
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {k: out["serve"]["prefill_launches"][k]
+                       + N * out["serve"]["decode_launches"][k]
+                       + TSTEPS * out["train"]["launches"][k]
+                       for k in KERNEL_META}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase train: the port's training entry point on the card
 # K1b's shapes: (label, B, Sq, Sk, Hq, Hkv, dh, dv, causal, window, softcap,
 # scale, q_offset, types).  qwen2's training shape, gemma2's softcap at dh
@@ -2890,6 +3216,76 @@ def phase_times(torch, ops, ref):
 
 
 # ---------------------------------------------------------------------------
+def sanitizer_report(graph) -> dict:
+    """The lock sanitizer's graph after the fabric phase: its size, and
+    a failure on any cycle or violation."""
+    edges = graph.edges()
+    nodes = set(edges) | {d for ds in edges.values() for d in ds}
+    n_edges = sum(len(ds) for ds in edges.values())
+    under_admin = {d for ds in edges.values() for d in ds}
+    log(f"fabric sanitizer (repro_torch.analysis.sanitizer, installed before "
+        f"the port's first lock): {len(nodes)} lock classes, {n_edges} "
+        f"acquisition-order edges, {len(graph.violations)} violations, "
+        f"cycle {graph.find_cycle()}; router.py:_admin outermost "
+        f"{'router.py:_admin' not in under_admin}")
+    graph.assert_clean()
+    check("router.py:_admin" not in under_admin,
+          "router.py:_admin was taken under another fabric lock")
+    return dict(lock_classes=len(nodes), edges=n_edges,
+                violations=len(graph.violations))
+
+
+def fabric_child(out_path) -> int:
+    """Run in a fresh process by ``fabric_in_child``: the port's lock
+    sanitizer, installed before this process imports the port (so every
+    lock the port makes is tracked), then ``phase_fabric``, its engines'
+    close and the sanitizer's report, written to ``out_path`` as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import sanitizer
+    graph = sanitizer.install()
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
+    engines: list = []
+    try:
+        out = phase_fabric(torch, np, ops, tmp_root, engines)
+    finally:
+        for eng in engines:
+            eng.close()
+        shutil.rmtree(tmp_root, ignore_errors=True)
+    out["sanitizer"] = sanitizer_report(graph)
+    Path(out_path).write_text(json.dumps(
+        out, default=lambda o: o.item() if hasattr(o, "item") else str(o)))
+    return 0
+
+
+def fabric_in_child(torch, np, ops, tmp_root, engines, timeout=900):
+    """``fabric_child`` in a process of its own (and its own session, so
+    that every process it leaves is stopped): only the fabric phase runs
+    with the sanitizer's tracked locks, and the other phases' host times
+    are taken on the genuine ``threading`` locks.  The child loads the
+    ``build`` phase's libraries.  Returns the phase's results."""
+    import os
+    import signal
+    out_path = Path(tmp_root) / "fabric.json"
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import "
+            f"chip_smoke; sys.exit(chip_smoke.fabric_child({str(out_path)!r}))")
+    sys.stdout.flush()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    check(rc == 0, f"the fabric phase's process ended with {rc}")
+    return json.loads(out_path.read_text())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2928,7 +3324,8 @@ def main(argv=None) -> int:
     # out, so the next one starts with the card's memory free
     for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
                      ("moe", phase_moe), ("mla", phase_mla),
-                     ("xlstm", phase_xlstm), ("fabric", phase_fabric)):
+                     ("xlstm", phase_xlstm), ("fabric", fabric_in_child),
+                     ("launch", phase_launch)):
         if name not in phases:
             continue
         tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
@@ -2968,6 +3365,15 @@ def main(argv=None) -> int:
             f"ms, warm invoke {r['warm_ms']:.3f} ms"
             + (f", measured cold start {r['measured_cold_start_s'] * 1e3:.3f}"
                f" ms" if "measured_cold_start_s" in r else ""))
+    la = results["launch"]
+    log(f"e2e qwen2-0.5b sharded steps (launch layer, one-card mesh): "
+        f"prefill {la['serve']['prefill_ms']:.3f} ms vs unsharded "
+        f"{la['serve']['prefill_plain_ms']:.3f} ms, decode step "
+        f"{la['serve']['decode_step_ms']:.3f} ms vs "
+        f"{la['serve']['decode_plain_ms']:.3f} ms, train step "
+        f"{la['train']['step_ms'][-1]:.3f} ms vs "
+        f"{la['train']['plain_step_ms'][-1]:.3f} ms; logits bit for bit "
+        f"{la['serve']['bit_for_bit']}")
     tr = results["train"]
     qtr, rtr = (tr["full"][a] for a in ("qwen2-0.5b", "recurrentgemma-2b"))
     for arch, t, shares in (("qwen2-0.5b", qtr, ("k1b", "k1")),
@@ -2988,12 +3394,15 @@ def main(argv=None) -> int:
     # beside it
     paths = {tag: results[key]["launches"] for key, tag in PATHS}
     paths["qwen2-0.5b fabric"] = results["fabric"]["launches"]
+    paths["qwen2-0.5b launch"] = results["launch"]["launches"]
     paths["qwen2-0.5b train"] = qtr["launches"]
     paths["recurrentgemma-2b train"] = rtr["launches"]
     train_path = {"flash_attention_bwd": "qwen2-0.5b train",
                   "rglru_scan_bwd": "recurrentgemma-2b train"}
-    errs_all = dict(results["errs"],
-                    flash_attention_bwd=tr["errs"]["flash_attention_bwd"])
+    errs_all = {k: v for k, v in results["errs"].items() if k != "per_rank"}
+    errs_all["flash_attention_bwd"] = tr["errs"]["flash_attention_bwd"]
+    for k, e in results["errs"]["per_rank"].items():     # K1, K2, K1b
+        errs_all[k] = {n: max(errs_all[k][n], e[n]) for n in BOTH}
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "bound_by")
     records, short = [], []

@@ -11,8 +11,9 @@ bodies run on distinct hardware.
 Only the device half differs from the reference: a pinned shard runs
 its functions under ``torch.cuda.device`` of its first CUDA device
 instead of ``jax.default_device``, and a shard pinned to the CPU makes
-no call at all.  The per-shard mesh (``mesh()``) is ROADMAP.md module
-item 7b.
+no call at all; the per-shard mesh (``mesh()``) is a torch
+``DeviceMesh``, which, unlike a JAX ``Mesh``, has one process per
+device.
 
 Workers never talk to each other: all cross-shard behavior (routing,
 freshen propagation, queue rebalancing) lives in
@@ -34,8 +35,6 @@ from repro_torch.core.prediction import HybridPredictor
 from repro_torch.core.runtime import FunctionSpec, Runtime
 from repro_torch.core.scheduler import FreshenScheduler
 from repro_torch.telemetry import Tracer
-
-MESH_ITEM = "ROADMAP.md module item 7b (partitioning, mesh, steps)"
 
 
 class ClusterWorker:
@@ -127,10 +126,17 @@ class ClusterWorker:
         return rt
 
     def mesh(self, axis_name: str = "model"):
-        """A 1-axis device mesh over this worker's device slice, for
-        tensor-parallel weights *within* the shard: not ported yet."""
-        raise NotImplementedError(
-            f"ClusterWorker.mesh() is not ported yet: {MESH_ITEM}")
+        """A 1-axis ``DeviceMesh`` over this worker's device slice, for
+        use with ``repro_torch.sharding.partitioning.shard_params`` when
+        an endpoint's weights should be tensor-parallel *within* the
+        shard.  One device gives a mesh of one rank; several need a
+        process group that already spans them, one process per device
+        (``launch.mesh.make_slice_mesh`` says why), and raise without
+        one."""
+        if not self.devices:
+            raise ValueError(f"shard {self.shard_id} has no pinned devices")
+        from repro_torch.launch.mesh import make_slice_mesh
+        return make_slice_mesh(self.devices, axis_name)
 
     # -- invocation (delegated) -----------------------------------------
     def has_function(self, fn: str) -> bool:

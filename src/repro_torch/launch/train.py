@@ -9,7 +9,10 @@ Trains the reduced float32 variant of ``--arch`` on the synthetic corpus
 
 On the card attention runs K1 forward and K1b backward, and
 recurrentgemma's RG-LRU scan K3 forward and K3b backward.  ``--dry-run``
-(lowering the full config on a production mesh) is not ported yet.
+runs the full config's ``train_4k`` step once on each production mesh,
+on fake tensors, and writes its ledger (``repro_torch.launch.dryrun``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --dry-run
 """
 from __future__ import annotations
 
@@ -28,13 +31,14 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile train_4k on the production mesh")
+                    help="run train_4k once on the production meshes, on "
+                         "fake tensors, and write its ledger")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run is not ported yet: ROADMAP.md module item 8b "
-            "(launch/dryrun.py)")
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", "train_4k",
+                            "--mesh", "both", "--force"])
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, packed_batches

@@ -139,17 +139,21 @@ def attention_prefill(p, x, cfg, *, local: bool, positions=None):
     return out, (k, v)
 
 
+def decode_slot(pos, window, S_cache: int):
+    """The cache slot of the token at ``pos``: a cache as long as the
+    window is a ring buffer."""
+    if window is not None and S_cache == window:
+        return torch.remainder(pos, window)
+    return pos
+
+
 def attention_decode(p, x, cfg, cache, pos, *, local: bool):
     """x: (B,1,d); cache: {"k","v"} of (B, S_cache, Hkv, hd); pos: (B,)
     int32.  Returns (out, cache) — the SAME cache dict, updated in place."""
     B = x.shape[0]
     q, k, v = attention_qkv(p, x, cfg, pos[:, None])
-    S_cache = cache["k"].shape[1]
     window = cfg.window_size if local else None
-    if window is not None and S_cache == window:
-        slot = torch.remainder(pos, window)
-    else:
-        slot = pos
+    slot = decode_slot(pos, window, cache["k"].shape[1])
     bidx = torch.arange(B, device=x.device)
     # in place: write this token's K/V into its cache slot (the reference
     # returns a new cache via .at[].set; the port keeps one buffer)

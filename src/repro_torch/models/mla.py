@@ -112,6 +112,27 @@ def mla_prefill(p, x, cfg, *, positions=None):
     return out, (ckv, kr)
 
 
+def absorbed_attend(qn, qr, ckv, kr, pos, wkv_b, cfg):
+    """The absorbed decode's attention: ``wkv_b``'s key half folded into
+    the query, the scores taken against the latents ``ckv`` (B, L, lora)
+    and ``kr`` up to ``pos``, its value half applied after.  qn, qr:
+    (B, 1, H, nope/rope) for ``cfg.n_heads`` heads -> (B, 1, H, v)."""
+    m = cfg.mla
+    S = ckv.shape[1]
+    valid = torch.arange(S, device=ckv.device)[None, :] <= pos.long()[:, None]
+    wkv_b = wkv_b.reshape(m.kv_lora_rank, cfg.n_heads, -1)
+    w_uk = wkv_b[..., :m.nope_head_dim]                      # (lora, H, nope)
+    w_uv = wkv_b[..., m.nope_head_dim:]                      # (lora, H, v)
+    q_lat = torch.einsum("bqhn,lhn->bqhl", qn, w_uk)
+    s = (torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
+         + torch.einsum("bqhr,bsr->bhqs", qr.float(), kr.float())) \
+        * _scale(cfg)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(qn.dtype)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", probs, ckv)
+    return torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv)
+
+
 def mla_decode(p, x, cfg, cache, pos):
     """x: (B, 1, d); cache {"ckv": (B, L, lora), "kr": (B, L, rope)};
     pos: (B,) int32.  Returns (out, cache) — the SAME cache dict, with
@@ -129,18 +150,7 @@ def mla_decode(p, x, cfg, cache, pos):
     scale = _scale(cfg)
 
     if m.decode_mode == "absorbed":
-        S = ckv.shape[1]
-        valid = torch.arange(S, device=x.device)[None, :] <= pos.long()[:, None]
-        wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H, -1)
-        w_uk = wkv_b[..., :m.nope_head_dim]                  # (lora, H, nope)
-        w_uv = wkv_b[..., m.nope_head_dim:]                  # (lora, H, v)
-        q_lat = torch.einsum("bqhn,lhn->bqhl", qn, w_uk)
-        s = (torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv.float())
-             + torch.einsum("bqhr,bsr->bhqs", qr.float(), kr.float())) * scale
-        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-        probs = torch.softmax(s, dim=-1).to(x.dtype)
-        o_lat = torch.einsum("bhqs,bsl->bqhl", probs, ckv)
-        out = torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv)
+        out = absorbed_attend(qn, qr, ckv, kr, pos, p["wkv_b"], cfg)
     elif m.decode_mode == "naive":
         kn, v = _expand(p, ckv, cfg)
         q = torch.cat([qn, qr], dim=-1)                      # (B, 1, H, qd)

@@ -16,7 +16,6 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.io import tree_map
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -24,6 +23,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import (ParamFactory, dense_init,
                                       init_rmsnorm, rmsnorm_apply)
+from repro_torch.sharding import boundary
 from repro_torch.specs import TensorSpec, tensors_like_specs
 
 
@@ -34,9 +34,14 @@ def _softcap(x, cap):
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = "cuda",
+                 constrain=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # optional sharding-constraint hook: constrain(x, tag) applied to
+        # activations at block boundaries and to loss logits (the launch
+        # layer injects a closure over its mesh, ``logits_constrainer``)
+        self.constrain = constrain
         for pattern, _ in cfg.segments:
             for kind in pattern:
                 transformer.require_ported(kind)
@@ -76,7 +81,11 @@ class Model:
         vision/audio frontend's ``frontend_embeds`` (B, S, d_model) take
         their place."""
         cfg = self.cfg
-        x = F.embedding(tokens, params["embed"])
+        if boundary.sharded(params["embed"]):
+            from repro_torch.sharding import tp
+            x = tp.embed(tokens, params["embed"])
+        else:
+            x = F.embedding(tokens, params["embed"])
         if cfg.scale_embedding:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -85,11 +94,19 @@ class Model:
                             frontend_embeds.to(x.dtype), x)
         return x
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, constrain=None):
         cfg = self.cfg
         x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-        table = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        logits = x @ table.to(x.dtype)
+        if boundary.sharded(x):
+            from repro_torch.sharding import tp
+            logits = tp.logits(x, params["embed"] if cfg.tie_embeddings
+                               else params["unembed"], cfg.tie_embeddings)
+        else:
+            table = params["embed"].T if cfg.tie_embeddings \
+                else params["unembed"]
+            logits = x @ table.to(x.dtype)
+        if constrain is not None:
+            logits = constrain(logits, "logits")
         return _softcap(logits, cfg.final_softcap)
 
     # ------------------------------------------------------------------
@@ -101,23 +118,27 @@ class Model:
         autograd with ``cfg.remat`` the segments are rematerialised."""
         cfg = self.cfg
         x = self._embed(params, tokens, frontend_embeds, frontend_mask)
+        if self.constrain is not None:
+            x = self.constrain(x, "activation")
         aux = 0.0
         for i, (pattern, repeats) in enumerate(cfg.segments):
             x, _, a = transformer.segment_apply(
                 pattern, repeats, cfg, params[f"seg{i}"], x,
-                remat=cfg.remat)
+                remat=cfg.remat, constrain=self.constrain)
             aux = aux + a
         if not torch.is_tensor(aux):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
 
-    def loss(self, params, batch, seq_chunk: int = 512):
+    def loss(self, params, batch, constrain=None, seq_chunk: int = 512):
         """Next-token cross-entropy in float32, chunked over the sequence:
         under autograd each chunk's (B, chunk, vocab) logits are recomputed
         in the backward (``torch.utils.checkpoint``) instead of kept.
         ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
         model's device, and optionally ``frontend_embeds`` /
-        ``frontend_mask``.  Returns (xent + aux, {"xent", "aux"})."""
+        ``frontend_mask``.  ``constrain`` (default: the model's) shapes
+        each chunk's logits.  Returns (xent + aux, {"xent", "aux"})."""
+        constrain = constrain if constrain is not None else self.constrain
         x, aux = self.forward(params, batch["tokens"],
                               batch.get("frontend_embeds"),
                               batch.get("frontend_mask"))
@@ -129,21 +150,28 @@ class Model:
                              f"seq_chunk {seq_chunk}")
 
         def chunk_xent(xb, tb):
-            logits = self._logits(params, xb).float()
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, tb.long()[..., None])[..., 0]
-            return torch.sum(logz - gold)
+            return self.chunk_xent(params, xb, tb, constrain)
 
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, S, seq_chunk):
             xb, tb = x[:, c0:c0 + seq_chunk], targets[:, c0:c0 + seq_chunk]
             if torch.is_grad_enabled():
-                total = total + checkpoint(chunk_xent, xb, tb,
-                                           use_reentrant=False)
+                total = total + transformer._remat(chunk_xent, xb, tb)
             else:
                 total = total + chunk_xent(xb, tb)
         loss = total / (B * S)
         return loss + aux, {"xent": loss, "aux": aux}
+
+    def chunk_xent(self, params, xb, tb, constrain=None):
+        """The summed float32 cross-entropy of one chunk of hidden states
+        ``xb`` (B, c, d) against targets ``tb`` (B, c)."""
+        logits = self._logits(params, xb, constrain).float()
+        if boundary.sharded(logits):
+            from repro_torch.sharding import tp
+            return tp.xent(logits, tb)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tb.long()[..., None])[..., 0]
+        return torch.sum(logz - gold)
 
     # ------------------------------------------------------------------
     def cache_specs(self, batch: int, max_len: int) -> tuple:
@@ -183,10 +211,12 @@ class Model:
         if cache is None:
             cache = self.init_cache(B, max_len)
         x = self._embed(params, tokens, frontend_embeds, frontend_mask)
+        if self.constrain is not None:
+            x = self.constrain(x, "activation")
         for i, (pattern, repeats) in enumerate(cfg.segments):
             x, _, _ = transformer.segment_apply(
                 pattern, repeats, cfg, params[f"seg{i}"], x,
-                seg_caches=cache[i])
+                seg_caches=cache[i], constrain=self.constrain)
         logits = self._logits(params, x[:, -1:])
         return logits, cache
 
@@ -195,10 +225,13 @@ class Model:
         the cache is updated in place and returned."""
         cfg = self.cfg
         x = self._embed(params, token)
+        if self.constrain is not None:
+            x = self.constrain(x, "activation")
         for i, (pattern, repeats) in enumerate(cfg.segments):
             x, _, _ = transformer.segment_apply(
                 pattern, repeats, cfg, params[f"seg{i}"], x,
-                seg_caches=cache[i], pos=pos, decode=True)
+                seg_caches=cache[i], pos=pos, decode=True,
+                constrain=self.constrain)
         logits = self._logits(params, x)
         return logits, cache
 
@@ -227,5 +260,6 @@ class Model:
         raise ValueError(shape.mode)
 
 
-def make_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> Model:
-    return Model(cfg, device=device)
+def make_model(cfg: ModelConfig, device: DeviceLike = "cuda",
+               constrain=None) -> Model:
+    return Model(cfg, device=device, constrain=constrain)

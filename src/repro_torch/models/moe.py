@@ -178,52 +178,10 @@ def moe_apply(p, x, cfg):
     with _stage("routing"):
         gates, probs, idx, aux = _route(p, x2d, e)
     gs = min(e.group_size, T)
-    if T % gs:
-        raise ValueError(f"{T} tokens are not a whole number of dispatch "
-                         f"groups of {gs}")
-    G = T // gs
-    C = _capacity(gs, e)
-    E, k = e.n_experts, e.top_k
-
-    with _stage("dispatch"):
-        xg = x2d.reshape(G, gs, d)
-        idx_g = idx.reshape(G, gs, k)
-        probs_g = probs.reshape(G, gs, k)
-        pos = _positions(idx_g, E)
-        keep = pos < C
-        if e.dispatch == "einsum":
-            # (G, gs, k, E, C) one-hot dispatch tensor
-            disp = (_one_hot(idx_g, E, x.dtype)[..., :, None]
-                    * _one_hot(pos, C, x.dtype)[..., None, :])
-            disp = disp * keep[..., None, None].to(x.dtype)
-            disp_tok = disp.sum(dim=2)                        # (G, gs, E, C)
-            expert_in = torch.einsum("gsec,gsd->gecd", disp_tok, xg)
-        elif e.dispatch == "gather":
-            slot = torch.where(keep, idx_g * C + pos, E * C)  # overflow row
-            buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype,
-                              device=x.device)
-            garange = torch.arange(G, device=x.device)[:, None, None]
-            buf[garange, slot] = xg[:, :, None, :].expand(G, gs, k, d)
-            expert_in = buf[:, :-1].reshape(G, E, C, d)
-        else:
-            raise ValueError(e.dispatch)
-        expert_in = expert_in.transpose(0, 1).reshape(E, G * C, d)
-    with _stage("experts"):
-        expert_out = _expert_ffn(p, expert_in, cfg.activation)
-    with _stage("combine"):
-        expert_out = expert_out.reshape(E, G, C, d).transpose(0, 1)
-        if e.dispatch == "einsum":
-            combine = (disp * probs_g[..., None, None].to(x.dtype)).sum(dim=2)
-            out2d = torch.einsum("gsec,gecd->gsd", combine, expert_out)
-        else:
-            ybuf = torch.cat([expert_out.reshape(G, E * C, d),
-                              torch.zeros((G, 1, d), dtype=x.dtype,
-                                          device=x.device)], dim=1)
-            gathered = ybuf[garange, slot]                    # (G, gs, k, d)
-            out2d = torch.sum(gathered * probs_g[..., None].to(x.dtype),
-                              dim=2)
+    out2d, keep, C, G = routed(p, x2d, probs, idx, cfg, gs)
     rec = _recorder()
     if rec is not None:
+        k, E = e.top_k, e.n_experts
         # outside autograd: a recorded forward saves for the backward just
         # what an unrecorded one (a checkpoint's recomputation) saves
         with torch.no_grad():
@@ -237,6 +195,77 @@ def moe_apply(p, x, cfg):
     if e.n_shared:
         out = out + mlp_apply(p["shared"], x, cfg.activation)
     return out, aux
+
+
+def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
+    """The routed experts' output (T, d) for tokens ``x2d`` (T, d) with
+    their top-k ``probs`` and ``idx`` (T, k), in dispatch groups of
+    ``gs`` tokens with the capacity of ``gs``.  ``p``'s expert stacks may
+    hold a slice of the experts, from global expert ``e0`` on (a tensor
+    parallel rank's): capacity and each assignment's rank are counted
+    over all experts, and only the slice's experts are computed, so the
+    slices' outputs sum to the whole.  Returns (out2d, keep, C, G)."""
+    e = cfg.moe
+    T, d = x2d.shape
+    x = x2d
+    if T % gs:
+        raise ValueError(f"{T} tokens are not a whole number of dispatch "
+                         f"groups of {gs}")
+    G = T // gs
+    C = _capacity(gs, e)
+    E, k = e.n_experts, e.top_k
+    E_loc = p["wi_e"].shape[0]
+    whole = E_loc == E
+
+    with _stage("dispatch"):
+        xg = x2d.reshape(G, gs, d)
+        idx_g = idx.reshape(G, gs, k)
+        probs_g = probs.reshape(G, gs, k)
+        pos = _positions(idx_g, E)
+        keep = pos < C
+        if e.dispatch == "einsum":
+            # (G, gs, k, E, C) one-hot dispatch tensor
+            disp = (_one_hot(idx_g, E, x.dtype)[..., :, None]
+                    * _one_hot(pos, C, x.dtype)[..., None, :])
+            disp = disp * keep[..., None, None].to(x.dtype)
+            disp_tok = disp.sum(dim=2)                        # (G, gs, E, C)
+            if not whole:
+                disp = disp[..., e0:e0 + E_loc, :]
+                disp_tok = disp_tok[..., e0:e0 + E_loc, :]
+            expert_in = torch.einsum("gsec,gsd->gecd", disp_tok, xg)
+        elif e.dispatch == "gather":
+            slot = torch.where(keep, idx_g * C + pos, E * C)  # overflow row
+            buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype,
+                              device=x.device)
+            garange = torch.arange(G, device=x.device)[:, None, None]
+            buf[garange, slot] = xg[:, :, None, :].expand(G, gs, k, d)
+            expert_in = buf[:, :-1].reshape(G, E, C, d)
+            if not whole:
+                expert_in = expert_in[:, e0:e0 + E_loc]
+        else:
+            raise ValueError(e.dispatch)
+        expert_in = expert_in.transpose(0, 1).reshape(E_loc, G * C, d)
+    with _stage("experts"):
+        expert_out = _expert_ffn(p, expert_in, cfg.activation)
+    with _stage("combine"):
+        expert_out = expert_out.reshape(E_loc, G, C, d).transpose(0, 1)
+        if e.dispatch == "einsum":
+            combine = (disp * probs_g[..., None, None].to(x.dtype)).sum(dim=2)
+            out2d = torch.einsum("gsec,gecd->gsd", combine, expert_out)
+        else:
+            if whole:
+                ybuf = torch.cat([expert_out.reshape(G, E * C, d),
+                                  torch.zeros((G, 1, d), dtype=x.dtype,
+                                              device=x.device)], dim=1)
+            else:                 # the other slices' slots read zeros
+                ybuf = torch.zeros((G, E * C + 1, d), dtype=x.dtype,
+                                   device=x.device)
+                ybuf[:, e0 * C:(e0 + E_loc) * C] = \
+                    expert_out.reshape(G, E_loc * C, d)
+            gathered = ybuf[garange, slot]                    # (G, gs, k, d)
+            out2d = torch.sum(gathered * probs_g[..., None].to(x.dtype),
+                              dim=2)
+    return out2d, keep, C, G
 
 
 def moe_ref(p, x, cfg):

@@ -124,28 +124,47 @@ def rglru_block_apply(p, x, cfg, cache=None, pos=None):
     Decode: x (B, 1, d), cache {"h": (B, r) f32, "conv": (B, w-1, r)}
     -> (y, a NEW {"h", "conv"}); the caller writes it into its buffers.
     """
-    g = cfg.rglru
-    nh = cfg.n_heads
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")   # jax.nn.gelu default
-    rec_in = x @ p["w_rec"]
     if cache is None:
-        rec = conv1d_causal(p["conv_w"], p["conv_b"], rec_in)
-        y, h_last = rglru_scan(p["lru"], rec, nh, g.c)
-        width = p["conv_w"].shape[0]
-        S = rec_in.shape[1]
-        if S >= width - 1:
-            conv_state = rec_in[:, S - (width - 1):]
-        else:                     # a short prompt: left-pad with zeros
-            conv_state = F.pad(rec_in, (0, 0, width - 1 - S, 0))
+        gate, rec, conv_state = block_pre(p, x)
+        y, h_last = rglru_scan(p["lru"], rec, cfg.n_heads, cfg.rglru.c)
         new_cache = {"h": h_last, "conv": conv_state}
     else:
-        rec_t, conv_state = conv1d_step(p["conv_w"], p["conv_b"],
-                                        rec_in[:, 0], cache["conv"])
-        y_t, h_new = rglru_step(p["lru"], rec_t, cache["h"], nh, g.c)
-        y = y_t[:, None]
-        new_cache = {"h": h_new, "conv": conv_state}
-    out = (gate * y) @ p["w_out"]
-    return out, new_cache
+        gate, y, new_cache = block_step(p, x, cfg, cache)
+    return block_post(p, gate, y), new_cache
+
+
+def block_pre(p, x):
+    """A prefill's work before the scan, x (B, S, d) -> (gate, rec,
+    conv_state): the gelu gate branch, the causal conv's output that the
+    scan takes, and the conv's last width-1 inputs (a short prompt
+    left-padded with zeros)."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")   # jax.nn.gelu default
+    rec_in = x @ p["w_rec"]
+    rec = conv1d_causal(p["conv_w"], p["conv_b"], rec_in)
+    width = p["conv_w"].shape[0]
+    S = rec_in.shape[1]
+    if S >= width - 1:
+        conv_state = rec_in[:, S - (width - 1):]
+    else:
+        conv_state = F.pad(rec_in, (0, 0, width - 1 - S, 0))
+    return gate, rec, conv_state
+
+
+def block_step(p, x, cfg, cache):
+    """A decode step, x (B, 1, d) -> (gate, y (B, 1, r), a NEW {"h",
+    "conv"})."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    rec_in = x @ p["w_rec"]
+    rec_t, conv_state = conv1d_step(p["conv_w"], p["conv_b"], rec_in[:, 0],
+                                    cache["conv"])
+    y_t, h_new = rglru_step(p["lru"], rec_t, cache["h"], cfg.n_heads,
+                            cfg.rglru.c)
+    return gate, y_t[:, None], {"h": h_new, "conv": conv_state}
+
+
+def block_post(p, gate, y):
+    """The block's output from the gate branch and the scan's y."""
+    return (gate * y.to(gate.dtype)) @ p["w_out"]
 
 
 def rglru_cache_specs(cfg, batch: int) -> dict:

@@ -29,6 +29,7 @@ from repro_torch.checkpoint.io import tree_map
 from repro_torch.models import layers, mla, moe, rglru, xlstm
 from repro_torch.models.layers import (ParamFactory, init_rmsnorm,
                                       rmsnorm_apply)
+from repro_torch.sharding import boundary
 from repro_torch.specs import TensorSpec, tensors_like_specs
 
 _ATTN = ("attn", "attn_local", "attn_moe")
@@ -90,11 +91,18 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     seeds a decode cache: (k, v) for attention, (ckv, kr) for MLA, the
     final state dict for the recurrent kinds.  ``aux`` is the MoE
     load-balance loss, a float32 scalar tensor, or 0.0 for the kinds
-    without MoE (no device work for them)."""
+    without MoE (no device work for them).  On DTensors (a sharded
+    step) the mixer and the FFN run tensor parallel (``sharding.tp``)."""
     require_ported(kind)
+    tp = None
+    if boundary.sharded(x):
+        from repro_torch.sharding import tp
     aux = 0.0
     h = rmsnorm_apply(p["norm1"], x, cfg.norm_eps)
-    if kind in _MLA:
+    if tp is not None:
+        out, new_cache = tp.mixer_apply(kind, cfg, p["mixer"], h,
+                                        cache=cache, pos=pos, decode=decode)
+    elif kind in _MLA:
         if decode:
             out, new_cache = mla.mla_decode(p["mixer"], h, cfg, cache, pos)
         else:
@@ -117,7 +125,9 @@ def block_apply(kind, cfg, p, x, *, cache=None, pos=None, decode=False):
     x = x + out
     if _has_ffn(kind, cfg):
         h2 = rmsnorm_apply(p["norm2"], x, cfg.norm_eps)
-        if kind in _MOE:
+        if tp is not None:
+            out2, aux = tp.ffn_apply(kind, cfg, p["ffn"], h2)
+        elif kind in _MOE:
             out2, aux = moe.moe_apply(p["ffn"], h2, cfg)
         else:
             out2 = layers.mlp_apply(p["ffn"], h2, cfg.activation)
@@ -161,12 +171,20 @@ def seed_block_cache(kind, cfg, cache, prefill_out, seq_len: int) -> dict:
     require_ported(kind)
     if kind in _RECURRENT:
         for name, val in prefill_out.items():
-            cache[name].copy_(val)
+            if boundary.sharded(cache[name]):
+                boundary.assign(cache[name], val)
+            else:
+                cache[name].copy_(val)
         return cache
     names = ("ckv", "kr") if kind in _MLA else ("k", "v")
     for name, val in zip(names, prefill_out):
         buf = cache[name]
         L = buf.shape[1]
+        if boundary.sharded(buf):        # each rank seeds the slots it holds
+            t0 = max(0, seq_len - L)
+            boundary.write_slots(buf, val[:, t0:seq_len],
+                                 [t % L for t in range(t0, seq_len)])
+            continue
         val = val.to(buf.dtype)
         if seq_len >= L:                  # exact fit, or ring-buffer wrap
             tail = val[:, seq_len - L:]
@@ -241,7 +259,7 @@ def _remat(fn, *args):
 
 def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
                   seg_caches=None, pos=None, decode=False,
-                  remat: bool = False):
+                  remat: bool = False, constrain=None):
     """Run ``repeats`` stacked super-blocks.  Returns (x, seg_caches, aux).
 
     With ``seg_caches`` (stacked ``(repeats, ...)`` buffers) the caches
@@ -256,12 +274,17 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
     k super-blocks and one around each super-block inside it, so the
     backward keeps R/k group boundaries and recomputes within a group;
     otherwise a checkpoint around each super-block.  The repeats' params
-    are taken with :func:`unbind_repeats`."""
+    are taken with :func:`unbind_repeats`.
+
+    ``constrain`` (the launch layer's ``logits_constrainer`` hook) is
+    applied to ``x`` after every block, ``constrain(x, "activation")``,
+    as the reference's ``superblock_apply`` applies it."""
     per_repeat = unbind_repeats(seg_params, repeats)
     if seg_caches is None and not decode:
         if remat and torch.is_grad_enabled():
-            return _segment_remat(pattern, repeats, cfg, per_repeat, x)
-        x, aux = _superblocks(pattern, cfg, per_repeat, x)
+            return _segment_remat(pattern, repeats, cfg, per_repeat, x,
+                                  constrain)
+        x, aux = _superblocks(pattern, cfg, per_repeat, x, constrain)
         return x, None, aux
     aux = 0.0
     for r, params_r in enumerate(per_repeat):
@@ -275,45 +298,51 @@ def segment_apply(pattern, repeats: int, cfg, seg_params, x, *,
             else:
                 x, seed, a = block_apply(kind, cfg, params_r[j], x)
                 seed_block_cache(kind, cfg, cache_rj, seed, x.shape[1])
+            if constrain is not None:
+                x = constrain(x, "activation")
             aux = aux + a
     return x, seg_caches, aux
 
 
-def _superblock(pattern, cfg, params_r, x):
+def _superblock(pattern, cfg, params_r, x, constrain=None):
     """One super-block (each kind of ``pattern`` once) with no caches;
     returns (x, aux)."""
     aux = 0.0
     for j, kind in enumerate(pattern):
         x, _, a = block_apply(kind, cfg, params_r[j], x)
+        if constrain is not None:
+            x = constrain(x, "activation")
         aux = aux + a
     return x, aux
 
 
-def _superblocks(pattern, cfg, params_rs, x):
+def _superblocks(pattern, cfg, params_rs, x, constrain=None):
     aux = 0.0
     for params_r in params_rs:
-        x, a = _superblock(pattern, cfg, params_r, x)
+        x, a = _superblock(pattern, cfg, params_r, x, constrain)
         aux = aux + a
     return x, aux
 
 
-def _remat_each(pattern, cfg, params_rs, x):
+def _remat_each(pattern, cfg, params_rs, x, constrain=None):
     """The super-blocks of ``params_rs`` in order from ``x``, each under
     its own checkpoint; returns (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params_r in params_rs:
-        x, a = _remat(_superblock, pattern, cfg, params_r, x)
+        x, a = _remat(_superblock, pattern, cfg, params_r, x, constrain)
         aux = aux + a
     return x, aux
 
 
-def _segment_remat(pattern, repeats: int, cfg, per_repeat, x):
+def _segment_remat(pattern, repeats: int, cfg, per_repeat, x,
+                   constrain=None):
     k = _sqrt_divisor(repeats) if repeats >= 4 else 1
     if k == 1:
-        x, aux = _remat_each(pattern, cfg, per_repeat, x)
+        x, aux = _remat_each(pattern, cfg, per_repeat, x, constrain)
         return x, None, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g0 in range(0, repeats, k):
-        x, a = _remat(_remat_each, pattern, cfg, per_repeat[g0:g0 + k], x)
+        x, a = _remat(_remat_each, pattern, cfg, per_repeat[g0:g0 + k], x,
+                      constrain)
         aux = aux + a
     return x, None, aux

@@ -275,28 +275,42 @@ def slstm_block_apply(p, x, cfg, cache=None):
     {"c","n","h","m"}).  Decode: one step from the cache's states -> (out,
     a NEW state dict); the caller writes it into its buffers."""
     nh = cfg.n_heads
-    B, S, d = x.shape
-    xf32 = x.to(F32)
-    xz = xf32 @ p["w_z"].to(F32) + p["b_z"]
-    xi = xf32 @ p["w_i"].to(F32) + p["b_i"]
-    xf_ = xf32 @ p["w_f"].to(F32) + p["b_f"]
-    xo = xf32 @ p["w_o"].to(F32) + p["b_o"]
+    B = x.shape[0]
+    xz, xi, xf_, xo = slstm_inputs(p, x)
     if cache is None:
-        state = init_slstm_cache(cfg, B, x.device)
-        hs = []
-        for t in range(S):
-            state = slstm_step(p, xz[:, t], xi[:, t], xf_[:, t], xo[:, t],
-                               state, nh)
-            hs.append(state["h"])
-        h = torch.stack(hs, dim=1).to(x.dtype)              # (B, S, d)
+        h, state = slstm_scan(p, xz, xi, xf_, xo,
+                              init_slstm_cache(cfg, B, x.device), nh)
+        h = h.to(x.dtype)                                   # (B, S, d)
     else:
         state = slstm_step(p, xz[:, 0], xi[:, 0], xf_[:, 0], xo[:, 0],
                            cache, nh)
         h = state["h"][:, None].to(x.dtype)
+    return slstm_output(p, h, cfg), state
+
+
+def slstm_scan(p, xz, xi, xf, xo, state, nh: int):
+    """The recurrence over all S steps from ``state`` -> (h (B, S, d)
+    float32, the final state)."""
+    hs = []
+    for t in range(xz.shape[1]):
+        state = slstm_step(p, xz[:, t], xi[:, t], xf[:, t], xo[:, t],
+                           state, nh)
+        hs.append(state["h"])
+    return torch.stack(hs, dim=1), state
+
+
+def slstm_inputs(p, x):
+    """The gates' input contributions (B, S, d) float32: z, i, f, o."""
+    xf32 = x.to(F32)
+    return tuple(xf32 @ p[f"w_{g}"].to(F32) + p[f"b_{g}"] for g in "zifo")
+
+
+def slstm_output(p, h, cfg):
+    """The block's output from its hidden states ``h`` (B, S, d): the
+    output norm, then the gated up and down projections."""
     h = rmsnorm_apply(p["out_norm"], h, cfg.norm_eps)
     up = F.gelu(h @ p["w_up1"], approximate="tanh")         # jax.nn.gelu
-    out = (up * (h @ p["w_up2"])) @ p["w_down"]
-    return out, state
+    return (up * (h @ p["w_up2"])) @ p["w_down"]
 
 
 def slstm_cache_specs(cfg, batch: int) -> dict:

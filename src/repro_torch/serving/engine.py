@@ -185,7 +185,8 @@ class ModelEndpoint:
         key = (self.name, self.batch_size, self.seq_len)
         if not self.warm_budget.allows(key):
             return 0.0
-        compiled = self.executor.get(f"{self.name}/score", self._specs())
+        compiled = self.executor.get(f"{self.name}/score", self._specs(),
+                                     device=self.device)
         if compiled is None:
             compiled = self._compile()
         return self.executor.warmup(compiled, self._specs(),

@@ -4,9 +4,12 @@
 PyTorch runs eagerly, so "compiling" a step function means making
 everything it needs ready and binding it: on CUDA that is building (nvcc,
 seconds, once per process) or loading the kernel library, on the CPU
-nothing but the binding.  The cache is keyed by (name, shapes, types),
-as the reference's is, and ``compile_seconds`` records what each compile
-cost — the cold start the freshen plan moves off the critical path.
+nothing but the binding.  The cache is keyed by (name, device, shapes,
+types): the reference's key follows the inputs, and a compiled step
+here is a closure over one device's model, so each card an endpoint
+runs on compiles (and is timed) on its own.  ``compile_seconds``
+records what each compile cost — the cold start the freshen plan moves
+off the critical path.
 CUDA-graph capture of the fixed-shape steps is later work (ROADMAP.md
 module item 9).
 """
@@ -47,22 +50,22 @@ class Executor:
         self.hit_count = 0
 
     @staticmethod
-    def _key(name: str, specs) -> Tuple:
-        return (name,) + tuple((tuple(s.shape), str(s.dtype))
-                               for s in spec_leaves(specs))
+    def _key(name: str, specs, device: torch.device) -> Tuple:
+        return (name, str(device)) + tuple((tuple(s.shape), str(s.dtype))
+                                           for s in spec_leaves(specs))
 
     # ------------------------------------------------------------------
     def compile(self, name: str, fn: Callable, specs, *,
                 device: DeviceLike = "cuda") -> Tuple[Compiled, float]:
         """Make ``fn`` ready to run on ``device`` for inputs of ``specs``;
-        cached.  Returns (compiled, seconds_spent_now)."""
-        key = self._key(name, specs)
+        cached per device.  Returns (compiled, seconds_spent_now)."""
+        t0 = time.monotonic()
+        dev = resolve_device(device)
+        key = self._key(name, specs, dev)
         with self._lock:
             if key in self._cache:
                 self.hit_count += 1
                 return self._cache[key], 0.0
-        t0 = time.monotonic()
-        dev = resolve_device(device)
         if dev.type == "cuda":
             ops.LIBRARY.load()           # nvcc at first use in the process
         compiled = Compiled(name, fn, dev)
@@ -73,9 +76,12 @@ class Executor:
             self.compile_count += 1
         return compiled, dt
 
-    def get(self, name: str, specs) -> Optional[Compiled]:
+    def get(self, name: str, specs,
+            device: DeviceLike) -> Optional[Compiled]:
+        """The step compiled for ``specs`` on ``device``, or None."""
         with self._lock:
-            return self._cache.get(self._key(name, specs))
+            return self._cache.get(self._key(name, specs,
+                                             resolve_device(device)))
 
     # ------------------------------------------------------------------
     def warmup(self, compiled: Compiled, specs,

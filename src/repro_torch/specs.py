@@ -2,19 +2,22 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
 
 @dataclass(frozen=True)
 class TensorSpec:
-    """Shape and type of one tensor, and the value a new one is filled
-    with (a cache leaf that does not start at zero, such as the mLSTM
-    stabiliser ``m``)."""
+    """Shape and type of one tensor, the value a new one is filled with
+    (a cache leaf that does not start at zero, such as the mLSTM
+    stabiliser ``m``), and, for a sharded step's inputs, its
+    ``sharding.NamedSharding`` (the mesh and the spec that give its
+    DTensor placements)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     fill: float = 0.0
+    sharding: Any = None
 
 
 def spec_leaves(specs) -> list:

@@ -53,8 +53,8 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params) -> OptState:
-    def f32zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def f32zeros(p):              # a DTensor param's moments keep its shards
+        return torch.zeros_like(p, dtype=torch.float32)
     leaf = next(iter(flatten_with_paths(params).values()))
     return OptState(step=torch.zeros((), dtype=torch.int32, device=leaf.device),
                     mu=tree_map(f32zeros, params),

@@ -23,11 +23,13 @@ import torch
 from repro_torch.checkpoint.io import (flatten_with_paths, save_pytree,
                                        tree_map, unflatten_paths)
 from repro_torch.models.model import Model
+from repro_torch.sharding import boundary
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
                                          adamw_update, init_opt_state)
 
 
-def loss_and_grads(model: Model, params, batch, seq_chunk: int = 512):
+def loss_and_grads(model: Model, params, batch, seq_chunk: int = 512,
+                   constrain=None):
     """(loss, metrics, grads) of ``model.loss`` at ``params``: the grads
     tree mirrors params, each leaf in its param's type; a param the loss
     does not reach gets zeros, as ``jax.grad`` gives it."""
@@ -35,17 +37,25 @@ def loss_and_grads(model: Model, params, batch, seq_chunk: int = 512):
             for k, t in flatten_with_paths(params).items()}
     with torch.enable_grad():
         loss, metrics = model.loss(unflatten_paths(flat), batch,
-                                   seq_chunk=seq_chunk)
+                                   constrain=constrain, seq_chunk=seq_chunk)
         grads = torch.autograd.grad(loss, list(flat.values()),
                                     allow_unused=True)
-    grads = {k: torch.zeros_like(t) if g is None else g
+    grads = {k: torch.zeros_like(t) if g is None else _placed_like(g, t)
              for (k, t), g in zip(flat.items(), grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten_paths(grads)
 
 
+def _placed_like(g, p):
+    """A DTensor gradient redistributed to its param's placements (a
+    replicated param's gradient comes back partial over the batch axes)."""
+    if boundary.sharded(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
-                    num_microbatches: int = 1,
+                    num_microbatches: int = 1, constrain=None,
                     seq_chunk: int = 512) -> Callable:
     """Full step: forward and backward (accumulated over microbatches)
     and the AdamW update.  With ``num_microbatches > 1`` each
@@ -56,7 +66,7 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
     def step(params, opt_state: OptState, batch):
         if num_microbatches == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch,
-                                                  seq_chunk)
+                                                  seq_chunk, constrain)
         else:
             def split(x, i):
                 B = x.shape[0]
@@ -65,13 +75,13 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *,
                                      f"{num_microbatches} microbatches")
                 n = B // num_microbatches
                 return x[i * n:(i + 1) * n]
-            g_sum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            g_sum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             l_sum = None
             for i in range(num_microbatches):
                 mb = {k: split(v, i) for k, v in batch.items()}
                 loss_i, _, grads = loss_and_grads(model, params, mb,
-                                                  seq_chunk)
+                                                  seq_chunk, constrain)
                 flat_sum = flatten_with_paths(g_sum)
                 for k, g in flatten_with_paths(grads).items():
                     flat_sum[k].add_(g.float())

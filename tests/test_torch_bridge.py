@@ -38,7 +38,8 @@ COPIES = sorted(
                                      "export")]
     + [f"workloads/{m}.py" for m in ("__init__", "adapt", "history",
                                      "replay", "trace")]
-    + ["serving/batching.py", "serving/datastore.py",
+    + ["analysis/__init__.py", "analysis/lint.py",
+       "serving/batching.py", "serving/datastore.py",
        "cluster/__init__.py", "cluster/accounting.py", "cluster/router.py",
        "data/__init__.py", "data/pipeline.py"]
     + [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")])

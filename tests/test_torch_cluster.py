@@ -372,15 +372,24 @@ def test_pinned_worker_runs_every_hook_under_its_device(device, monkeypatch):
 
 
 def test_pinned_worker_needs_the_thread_backend_and_has_no_mesh():
+    """A pinned shard takes only the thread backend.  Its mesh is a torch
+    ``DeviceMesh``: a slice of two cards with no process group spanning
+    them has none, and the error says why (one process per device); an
+    unpinned shard has none either."""
     worker = ClusterWorker(3, devices=[torch.device("cuda", 0)])
+    pair = ClusterWorker(4, devices=[torch.device("cuda", 0),
+                                     torch.device("cuda", 1)])
     try:
         for backend in ("subprocess", "snapshot"):
             with pytest.raises(ValueError, match="thread backend"):
                 worker.register(make_spec("fn"), backend=backend)
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            worker.mesh()
+        with pytest.raises(RuntimeError, match="one process per device"):
+            pair.mesh()
+        with pytest.raises(ValueError, match="no pinned devices"):
+            ClusterWorker(5).mesh()
     finally:
         worker.shutdown()
+        pair.shutdown()
 
 
 @pytest.mark.parametrize("kernel,launch", [

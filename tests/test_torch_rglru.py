@@ -375,7 +375,7 @@ def test_cache_types_match_reference(both):
     ep._compile_decode(MAX_LEN)
     assert ep.executor.get(f"{NAME}/decode{MAX_LEN}", (
         ep._params_spec(), pm.cache_specs(B, MAX_LEN), ep._tokens_spec(1),
-        TensorSpec((B,), torch.int32))) is not None
+        TensorSpec((B,), torch.int32)), device="cpu") is not None
     jblk = jax.eval_shape(lambda: jrglru.init_rglru_cache(cfg, B))
     assert kinds(rglru.init_rglru_cache(pcfg, B, "cpu")) == {
         k: (tuple(l.shape), str(l.dtype)) for k, l in jblk.items()}

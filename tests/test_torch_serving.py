@@ -85,7 +85,7 @@ def test_executor_compile_cache():
     assert ex.hit_count == 1 and ex.compile_count == 1
     torch.testing.assert_close(c1(torch.ones(4)), torch.full((4,), 2.0))
     assert ex.warmup(c1, specs) >= 0.0
-    assert ex.get("f", specs) is c1
+    assert ex.get("f", specs, device="cpu") is c1
 
 
 def test_endpoint_cold_vs_freshened(setup):
@@ -206,24 +206,57 @@ def test_submit_request_batches_rows(setup):
 
 
 def test_unported_placement_and_backends_raise(setup):
-    """Placement and out-of-process endpoints are ported; what still
-    raises is a shard's device mesh (ROADMAP.md module item 7b), an
-    out-of-process endpoint without ``spec_ref``, and a fabric of no
-    shards."""
+    """What raises: an out-of-process endpoint without ``spec_ref``, a
+    fabric of no shards, and the mesh of a shard pinned to no device.  A
+    shard pinned to the CPU has a one-rank ``("model",)`` mesh, on a gloo
+    process group of world size 1."""
+    import torch.distributed as dist
+    from repro_torch.cluster import ClusterWorker
     from repro_torch.core import BackendError
     cfg, _, store, _, _ = setup
     eng = ServingEngine()
+    cpu = ClusterWorker(7, devices=[torch.device("cpu")])
     try:
         with pytest.raises(BackendError, match="FunctionSpec.ref"):
             eng.deploy(_ep(cfg, store), backend="snapshot")
         assert eng.scale_shards(2) == 2
-        with pytest.raises(NotImplementedError, match="item 7b"):
+        with pytest.raises(ValueError, match="no pinned devices"):
             eng.cluster.workers[0].mesh()
+        mesh = cpu.mesh()
+        assert mesh.mesh_dim_names == ("model",) and mesh.size() == 1
+        assert mesh.device_type == "cpu"
         with pytest.raises(ValueError, match="at least one shard"):
             eng.scale_shards(0)
         assert eng.scale_shards(1) == 1
     finally:
         eng.close()
+        cpu.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_second_device_compiles_its_own_step(setup):
+    """Two shards on two devices that share one endpoint: the compiled
+    step is a closure over one device's model, so the second device's
+    compile misses the cache, binds its own model and records its own
+    ``compile_seconds`` (two CPU devices stand in for two cards)."""
+    cfg, _, store, _, _ = setup
+    ex = Executor()
+    ep = ModelEndpoint("tiny", cfg, store, ex, batch_size=2, seq_len=SEQ,
+                       device="cpu:0")
+    first = ep._compile()
+    ep.requested_device = "cpu:1"
+    second = ep._compile()
+    assert first is not second
+    assert (first.device, second.device) == (torch.device("cpu", 0),
+                                             torch.device("cpu", 1))
+    assert ex.compile_count == 2 and ex.hit_count == 0
+    assert sorted(k[1] for k in ex.compile_seconds) == ["cpu:0", "cpu:1"]
+    assert ep.model_for(first.device) is not ep.model_for(second.device)
+    assert ex.get("tiny/score", ep._specs(), device="cpu:0") is first
+    assert ex.get("tiny/score", ep._specs(), device="cpu:1") is second
+    ep.requested_device = "cpu:0"
+    assert ep._compile() is first and ex.hit_count == 1
 
 
 def test_endpoint_defaults_to_cuda_and_refuses_cpu_fallback(setup):

@@ -409,10 +409,16 @@ def test_trainer_checkpoint_loads_in_jax(tmp_path):
                                       err_msg=k)
 
 
-def test_train_launcher_on_cpu(capsys):
+def test_train_launcher_on_cpu(capsys, monkeypatch):
     hist = train_launcher.main(["--device", "cpu", "--arch", "qwen2-0.5b",
                                 "--steps", "4", "--batch", "2", "--seq", "32"])
     assert len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
     assert "done: loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="8b"):
-        train_launcher.main(["--arch", "qwen2-0.5b", "--dry-run"])
+    # --dry-run hands the reference's arguments to the port's dry run
+    # (``tests/test_torch_launch.py`` runs that dry run itself)
+    from repro_torch.launch import dryrun
+    seen = []
+    monkeypatch.setattr(dryrun, "main", lambda argv: seen.append(argv))
+    train_launcher.main(["--arch", "qwen2-0.5b", "--dry-run"])
+    assert seen == [["--arch", "qwen2-0.5b", "--shape", "train_4k",
+                     "--mesh", "both", "--force"]]
