@@ -14,7 +14,9 @@ Phases, each of which raises on failure (exit code 1):
    K1's and K1b's shared memory per block, and K3's and K3b's plans
    (tiles, ring stages, shared memory) at their timed shapes;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the cases of ``tests/test_kernels.py``, both served models' shapes,
+   the cases of ``tests/test_kernels.py``, the served models' shapes
+   (the dense phase's too, gemma2's K1 at a prompt of 4200 past its
+   window of 4096 and its K2 on the 4096-slot ring),
    rows that see no key, and the edges of the new designs (K1's bf16
    head-dim tiles up to dh 192 / dv 128 and 256, ragged Sq, q_offset; K2's
    splits wholly past pos and the ring across split edges; MLA's dh 192
@@ -86,7 +88,28 @@ Phases, each of which raises on failure (exit code 1):
    decode steps must give a 128-token forward's logits (the chunkwise
    prefill's states handed over to the step recurrence); each within
    1e-3 with identical greedy tokens;
-9. fabric: full-width qwen2-0.5b (bf16, batch 4, prompt 128), published
+9. dense: the five configurations no other phase serves, at their
+   published widths (heads, head dims, d_ff, vocab, window, softcaps,
+   activations), bf16, random weights from seed 0: musicgen-medium uncut
+   (48 layers, 24/24 heads at dh 64, tanh-GELU), then pixtral-12b (32/8
+   at dh 128, ``rope_theta`` 1e6), phi3-medium-14b (40/10) and
+   nemotron-4-15b (48/8, squared ReLU, vocab 256000), each cut to 4
+   layers, and gemma2-27b cut to 2 (local, global) pairs (32/16 at dh
+   128, window 4096, softcaps 50 and 30): each published once and served
+   as ``main`` is (its own launch-count window: K1 n per forward, K2 n
+   per decode step), with the ungated bf16 kernel-vs-reference comparison
+   and a profiler pass, its engines closed and its weights dropped
+   before the next; each model's float32 gate at 2 layers (gemma2: one
+   local, one global), TF32 off, batch 4 x 128 (every teacher-forced
+   step within 1e-3, identical tokens), and for gemma2 also batch 1 x
+   4200 with 8 decode steps, past the window on the local layers' 4096-
+   slot ring; then the paper's chain: one engine with all five endpoints
+   deployed from their published stores and chained, one request walked
+   through them with ``freshen_successors=True``, each successor's
+   freshen joined before its invoke (every entry freshened, none
+   inline), each stage's logits bit for bit its own served run's, the
+   freshen bill, the stages' invoke ms and the card's peak memory;
+10. fabric: full-width qwen2-0.5b (bf16, batch 4, prompt 128), published
    once, through the fabric: on one scheduler (the thread backend; the
    reference logits of 16 prompts); on two shards of the card behind
    the warmth-aware router (``deploy(shards=2, elastic=True)``,
@@ -108,7 +131,7 @@ Phases, each of which raises on failure (exit code 1):
    installed before that process imports the port, so no other phase
    runs with tracked locks): it prints the graph's size and fails on a
    cycle or a violation;
-10. launch: the launch layer (``repro_torch.launch.steps``) on a (1, 1)
+11. launch: the launch layer (``repro_torch.launch.steps``) on a (1, 1)
    mesh over the card (an NCCL group of world size 1): qwen2-0.5b uncut
    in bf16 through the sharded prefill (batch 4 x prompt 128) and 15
    greedy decode steps, against the unsharded ``Model.prefill`` and
@@ -118,7 +141,7 @@ Phases, each of which raises on failure (exit code 1):
    in 2 microbatches (K1 132, K1b 48 per step); each sharded step's ms
    beside the unsharded one's; a float32 gate at 2 layers, 2 x 256: the
    loss and every gradient leaf within 1e-4 of the unsharded ones;
-11. train: the second entry point, training.  K1's float32 row
+12. train: the second entry point, training.  K1's float32 row
    log-sum-exp (written only when asked for) and K1b, the flash-attention
    backward, against their plain versions in float32 and bfloat16 at
    qwen2's training shape (B 4, S 1024, 14/2, dh 64), gemma2's softcap 50
@@ -151,8 +174,10 @@ Phases, each of which raises on failure (exit code 1):
    tokens/s, peak memory and one profiled step (idle share, the shares
    of device time of K3b, K3 and K1b; trace in
    ``build/profile/train_rgemma``);
-12. times: each kernel, its plain version, the PyTorch library call and
-   the bound, at each served model's shapes and a long one (K3 also at
+13. times: each kernel, its plain version, the PyTorch library call and
+   the bound, at each served model's shapes (the dense phase's five
+   too; gemma2's K1 and K2 with softcap 50, sdpa's without) and a long
+   one (K3 also at
    four prompts of 2048 and at the gate's prompt of 2100, with its
    achieved GB/s; K1b at the four training-phase shapes against the
    backward of sdpa; K3b at the training microbatch and at one long
@@ -182,7 +207,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "fabric", "launch", "train", "times")
+          "dense", "fabric", "launch", "train", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -417,6 +442,17 @@ def phase_parity(torch, ops, ref):
         # granite's attn_moe prefill: 16/8 heads at dh 64
         (4, 128, 128, 16, 8, 64, 64, True, None, None, 0),
         (4, 256, 256, 16, 8, 64, 64, True, None, None, 0),
+        # the dense phase's prefills: phi3 40/10, nemotron 48/8, pixtral
+        # 32/8 at dh 128, musicgen 24/24 at dh 64, gemma2's 32/16 at dh
+        # 128 with softcap 50 (local: window 4096; its gate's prompt of
+        # 4200 runs past the window)
+        (4, 128, 128, 40, 10, 128, 128, True, None, None, 0),
+        (4, 128, 128, 48, 8, 128, 128, True, None, None, 0),
+        (4, 128, 128, 32, 8, 128, 128, True, None, None, 0),
+        (4, 128, 128, 24, 24, 64, 64, True, None, None, 0),
+        (4, 128, 128, 32, 16, 128, 128, True, 4096, 50.0, 0),
+        (4, 128, 128, 32, 16, 128, 128, True, None, 50.0, 0),
+        (1, 4200, 4200, 32, 16, 128, 128, True, 4096, 50.0, 0),
     ]
     # MLA prefill: 16/16 heads, dh 192 (nope 128 + rope 64), dv 128; k
     # contiguous, v a view of the (nope + v)-wide latent expansion
@@ -475,6 +511,16 @@ def phase_parity(torch, ops, ref):
         (8, 4096, 14, 2, 64, None, None, [4095, 17, 2048, 4000, 1, 0, 3000, 255]),
         # granite's attn_moe decode: 16/8 heads at dh 64
         (4, 256, 16, 8, 64, None, None, [128, 131, 140, 143]),
+        # the dense phase's decode steps (G 4, 6, 4, 1, 2); gemma2's
+        # local layers at cache 256 and on the 4096-slot ring past its
+        # wrap, its global layers with the softcap alone
+        (4, 256, 40, 10, 128, None, None, [128, 131, 140, 143]),
+        (4, 256, 48, 8, 128, None, None, [128, 131, 140, 143]),
+        (4, 256, 32, 8, 128, None, None, [128, 131, 140, 143]),
+        (4, 256, 24, 24, 64, None, None, [128, 131, 140, 143]),
+        (4, 256, 32, 16, 128, 4096, 50.0, [128, 131, 140, 143]),
+        (1, 4096, 32, 16, 128, 4096, 50.0, [4095, 4096, 4200, 4207]),
+        (1, 4224, 32, 16, 128, None, 50.0, [4200, 4207]),
     ]
     # MLA naive decode: 16/16 heads (G 1), dh 192, dv 128, v a view of the
     # latent expansion; (B, S, positions)
@@ -1827,6 +1873,301 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
 
 
 # ---------------------------------------------------------------------------
+# phase dense: the five dense configurations no other phase serves, then
+# the paper's chain through all five
+# (arch, tag, served segments or None for uncut, prompt seed, the float32
+# gate's segments); widths, heads, head dims, vocab, window, softcaps and
+# activations stay as published
+DENSE = (
+    ("musicgen-medium", "musicgen", None, 11, ((("attn",), 2),)),
+    ("pixtral-12b", "pixtral", ((("attn",), 4),), 12, ((("attn",), 2),)),
+    ("phi3-medium-14b", "phi3", ((("attn",), 4),), 13, ((("attn",), 2),)),
+    ("nemotron-4-15b", "nemotron", ((("attn",), 4),), 14,
+     ((("attn",), 2),)),
+    ("gemma2-27b", "gemma2", ((("attn_local", "attn"), 2),), 15,
+     ((("attn_local", "attn"), 1),)),
+)
+DENSE_SHAPE = (4, 128, 256, 16)         # batch, prompt, cache, tokens
+# gemma2's float32 gate past its 4096 window: batch 1, prompt, cache and
+# tokens (the prefill's and 8 decode steps')
+GEMMA2_LONG = (1, 4200, 4224, 9)
+CHAIN_JOIN_S = 600
+
+
+def _cut(cfg, segments):
+    """``cfg`` with its depth cut to ``segments`` (None: uncut)."""
+    if segments is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, segments=segments,
+        n_layers=sum(len(pat) * reps for pat, reps in segments))
+
+
+@contextlib.contextmanager
+def _closing_new(torch, engines):
+    """Close the engines appended to ``engines`` inside the block when it
+    ends, and free what they held on the card.  They stay in ``engines``
+    until then, so the phase's own ``finally`` closes them on a
+    failure."""
+    import gc
+    n0 = len(engines)
+    try:
+        yield
+    finally:
+        for eng in engines[n0:]:
+            eng.close()
+        del engines[n0:]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _describe(cfg):
+    return (f"{cfg.n_layers} layers {cfg.segments}, d_model {cfg.d_model}, "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.activation}, "
+            f"vocab {cfg.vocab_size} "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}, rope_theta "
+            f"{cfg.rope_theta:g}, window {cfg.window_size}, softcaps "
+            f"{cfg.attn_softcap}/{cfg.final_softcap}, {cfg.dtype}, "
+            f"{cfg.param_count() / 1e9:.3f} B params")
+
+
+def serve_dense(torch, np, ops, full, cfg, tag, seed, store, engines):
+    """One dense model on the card in bf16, weights from seed 0: publish
+    to ``store`` (kept for the chain), serve (its own launch-count
+    window: n K1 per forward, n K2 per decode step), the ungated bf16
+    kernel-vs-reference comparison and the profiler pass.  Every engine
+    it makes is closed and its weights dropped before it returns."""
+    from repro_torch.models import make_model
+    B, S, MAX_LEN, N_TOK = DENSE_SHAPE
+    n = cfg.n_layers
+    cut = ("not cut" if cfg is full else
+           f"depth cut from {full.n_layers} to {n} layers (uncut "
+           f"{full.param_count() / 1e9:.3f} B params, "
+           f"{2 * full.param_count() / 1e9:.2f} GB in bf16)")
+    log(f"dense: {cfg.name} published widths, {cut}: {_describe(cfg)}; "
+        f"batch {B}, prompt {S}, cache {MAX_LEN}, {N_TOK} tokens")
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+    toks = torch.as_tensor(prompt, device="cuda")
+    out: dict = {"layers": n, "prompt": prompt}
+    t0 = time.perf_counter()
+    model = make_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["publish_s"] = _publish(store, tag, params)
+    out["bytes"] = store.nbytes(tag)
+
+    with _closing_new(torch, engines):
+        ops.reset_launches()                  # this path's run starts
+        bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
+                   max_len=MAX_LEN, n_tok=N_TOK)
+        out["launches"] = _counts(ops)        # ... and ends here
+    check_launches(bf, {"flash_attention": n, "decode_attention": 0,
+                        "rglru_scan": 0, **NO_BWD},
+                   {"flash_attention": 0, "decode_attention": n,
+                    "rglru_scan": 0, **NO_BWD}, N_TOK, f"{tag} bf16")
+    check(out["launches"]["flash_attention"] > 0
+          and out["launches"]["decode_attention"] > 0,
+          f"a kernel was not launched on the {tag} path: {out['launches']}")
+    _log_served(f"{tag} bf16", bf, N_TOK, out["launches"])
+    out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
+                                   "generate_ms", "cold_timing", "logits",
+                                   "tokens")})
+    log(f"{tag} bf16 cold invoke: {out['bytes'] / 1e9:.3f} GB of weights at "
+        f"{out['bytes'] / 1e9 / out['cold_timing']['weights']:.3f} GB/s "
+        f"(the load and the copy to the card)")
+
+    diff, agree, total, k_ms, r_ms = kernel_vs_reference(
+        torch, ops, model, params, toks, MAX_LEN, N_TOK)
+    out["bf16_teacher_forced"] = {"max_logit_diff": diff,
+                                  "greedy_agree": agree, "of": total}
+    out["decode_step_ms"], out["decode_step_ms_reference"] = k_ms, r_ms
+    log(f"{tag} bf16 kernel vs reference path, teacher-forced over {N_TOK} "
+        f"positions x {B} rows: max |logit diff| {diff:.4e}, greedy "
+        f"agreement {agree}/{total}; decode step median {k_ms:.2f} ms "
+        f"(reference path {r_ms:.2f} ms)")
+    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
+                                   ROOT / "build" / "profile" / tag)
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_gate(torch, np, ops, full, segments, tag, toks):
+    """The float32 gate at published widths cut to ``segments`` (TF32
+    off): the kernel path against the plain path, teacher-forced, every
+    step's logits within F32_LOGIT_TOL and the same greedy tokens; for
+    gemma2 also one prompt past its window, on the local layers' ring."""
+    from repro_torch.models import make_model
+    _no_tf32(torch)
+    cfg32 = dataclasses.replace(_cut(full, segments), dtype="float32")
+    log(f"{tag} f32 gate: depth cut from {full.n_layers} to "
+        f"{cfg32.n_layers} layers {cfg32.segments}; widths as published")
+    model32 = make_model(cfg32, device="cuda")
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(0))
+    _, _, max_len, n_tok = DENSE_SHAPE
+    runs = [("prompt 128", toks, max_len, n_tok)]
+    if cfg32.window_size:
+        B, S, max_len_l, n_tok_l = GEMMA2_LONG
+        ring = model32.cache_shapes(B, max_len_l)[0][0]["k"][2]
+        check(S > cfg32.window_size == ring,
+              f"{tag} long gate: prompt {S}, window {cfg32.window_size}, "
+              f"local cache {ring} slots: the ring does not wrap")
+        runs.append(("past the window", torch.as_tensor(
+            np.random.default_rng(16).integers(
+                0, cfg32.vocab_size, size=(B, S), dtype=np.int32),
+            device="cuda"), max_len_l, n_tok_l))
+    gates = {}
+    for label, p, ml, nt in runs:
+        diff, agree, total, _, _ = kernel_vs_reference(
+            torch, ops, model32, params32, p, ml, nt)
+        gates[label] = {"max_logit_diff": diff, "greedy_agree": agree,
+                        "of": total}
+        log(f"{tag} f32 kernel vs reference path [{label}: batch "
+            f"{p.shape[0]}, prompt {p.shape[1]}, cache {ml}, {nt - 1} decode "
+            f"steps at positions {p.shape[1]}-{p.shape[1] + nt - 2}], "
+            f"teacher-forced: max |logit diff| {diff:.3e} (limit "
+            f"{F32_LOGIT_TOL:g}), greedy agreement {agree}/{total}")
+        check(diff <= F32_LOGIT_TOL,
+              f"{tag} f32 [{label}] logits differ by {diff}")
+        check(agree == total,
+              f"{tag} f32 [{label}] greedy tokens differ: {agree}/{total}")
+    del params32, model32
+    torch.cuda.empty_cache()
+    return gates
+
+
+def dense_chain(torch, np, ops, served, cfgs, store, engines):
+    """The paper's scenario: one engine with every dense endpoint deployed
+    from its published store, chained in order; one request walks the
+    stages with ``freshen_successors=True``, so invoking stage k freshens
+    stage k + 1 while k runs.  Each successor's freshen is joined before
+    its invoke and must have left every entry freshened, none inline;
+    each stage's logits must equal, bit for bit, its own served run's."""
+    from repro_torch.core.accounting import ServiceClass
+    from repro_torch.serving import Executor, ModelEndpoint, ServingEngine
+    B, S, _, _ = DENSE_SHAPE
+    names = list(served)
+    out: dict = {"stages": {}}
+    with _closing_new(torch, engines):
+        eng = ServingEngine()
+        engines.append(eng)
+        acct = eng.scheduler.accountant
+        acct.service_class["serving"] = ServiceClass.LATENCY_SENSITIVE
+        for tag in names:
+            eng.deploy(ModelEndpoint(tag, cfgs[tag], store, Executor(),
+                                     batch_size=B, seq_len=S,
+                                     device="cuda"))
+        eng.chain(names)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                  # the chain's run starts
+        t0 = time.perf_counter()
+        for i, tag in enumerate(names):
+            rt = eng.scheduler.runtimes[tag]
+            st = {}
+            if i:
+                tj = time.perf_counter()
+                rt.join_freshen(timeout=CHAIN_JOIN_S)
+                st["join_ms"] = (time.perf_counter() - tj) * 1e3
+                check(not rt.freshen_in_flight(),
+                      f"chain: {tag}'s freshen still runs after "
+                      f"{CHAIN_JOIN_S} s")
+                # the scheduler books a freshen on a thread of its own
+                # once the freshen ends: wait for it, so that this
+                # invoke finds it pending and bills it useful
+                check(_wait_until(lambda: acct.bill(
+                    "serving").freshen_invocations >= i, 30.0),
+                      f"chain: {tag}'s freshen was not booked")
+                fr = rt.fr_state.stats()
+                st["freshen_stats"] = fr
+                check(fr["freshened"] >= 3 and fr["inline"] == 0,
+                      f"chain: {tag} before its invoke: {fr}")
+            ti = time.perf_counter()
+            res = eng.invoke(tag, served[tag]["prompt"],
+                             freshen_successors=True)
+            st["invoke_ms"] = (time.perf_counter() - ti) * 1e3
+            check(np.array_equal(res["logits"], served[tag]["logits"]),
+                  f"chain: {tag}'s logits differ from its served run's "
+                  f"(max |diff| "
+                  f"{np.abs(res['logits'] - served[tag]['logits']).max()})")
+            out["stages"][tag] = st
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = _counts(ops)        # ... and ends here
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        bill = acct.bill("serving")
+        out["bill"] = dict(function_s=bill.function_seconds,
+                           freshen_s=bill.freshen_seconds,
+                           useful=bill.useful_freshens,
+                           mispredicted=bill.mispredicted_freshens,
+                           cold_starts=bill.cold_starts)
+    # every stage runs its warm-up forward (inline at stage 0, in the
+    # freshen elsewhere) and the request's: 2 K1 per layer, no decode
+    want = {"flash_attention": 2 * sum(cfgs[t].n_layers for t in names),
+            "decode_attention": 0, "rglru_scan": 0, **NO_BWD}
+    check(out["launches"] == want,
+          f"chain launches {out['launches']} != {want}")
+    for tag in names:
+        st = out["stages"][tag]
+        log(f"chain {tag}: invoke {st['invoke_ms']:.1f} ms (served cold "
+            f"{served[tag]['cold_ms']:.1f}, warm {served[tag]['warm_ms']:.1f})"
+            + (f", freshen joined after {st['join_ms']:.1f} ms, "
+               f"{st['freshen_stats']}" if "join_ms" in st else ", cold")
+            + "; logits bit for bit its served run's")
+    b = out["bill"]
+    log(f"chain: {len(names)} stages in {out['wall_ms']:.1f} ms; freshen "
+        f"{b['freshen_s']:.3f} s, function {b['function_s']:.3f} s, useful "
+        f"{b['useful']}, mispredicted {b['mispredicted']}, cold starts "
+        f"{b['cold_starts']}; peak memory {out['peak_bytes'] / 1e9:.3f} GB; "
+        f"launches {out['launches']}")
+    check(b["mispredicted"] == 0 and b["useful"] == len(names) - 1,
+          f"chain bill: {b}")
+    return out
+
+
+def _wait_until(cond, timeout):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            return False
+        time.sleep(0.005)
+    return True
+
+
+def phase_dense(torch, np, ops, tmp_root, engines):
+    """musicgen-medium uncut and pixtral-12b, phi3-medium-14b,
+    nemotron-4-15b and gemma2-27b at published widths cut to 4 layers,
+    each served, gated in float32 and dropped before the next; then all
+    five as one chain."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import WeightStore
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
+    out: dict = {"models": {}, "seconds": {}}
+    cfgs = {}
+    for arch, tag, segs, seed, gate_segs in DENSE:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfgs[tag] = _cut(full, segs)
+        r = serve_dense(torch, np, ops, full, cfgs[tag], tag, seed, store,
+                        engines)
+        r["f32_gates"] = dense_gate(torch, np, ops, full, gate_segs, tag,
+                                    torch.as_tensor(r["prompt"],
+                                                    device="cuda"))
+        out["models"][tag] = r
+        out["seconds"][tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["chain"] = dense_chain(torch, np, ops, out["models"], cfgs, store,
+                               engines)
+    out["seconds"]["chain"] = time.perf_counter() - t0
+    log("dense seconds by step " + json.dumps(
+        {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase fabric: placement across shards and out-of-process endpoints
 FABRIC_ARCH = "qwen2-0.5b"
 FABRIC_NAME = "qwen2"
@@ -3027,6 +3368,9 @@ def _bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
 
 def phase_times(torch, ops, ref):
     import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    g2 = get_config("gemma2-27b")             # its window, softcap, scale
     gen = torch.Generator(device="cuda").manual_seed(99)
     bf16 = torch.bfloat16
     rows = {}
@@ -3041,17 +3385,26 @@ def phase_times(torch, ops, ref):
             return _rand(torch, gen, (B, S, H, 256), bf16)[..., 128:]
         return _rand(torch, gen, (B, S, H, dv), bf16)
 
-    # (label, B, S, Hq, Hkv, dh, dv, window): qwen2's main and long shapes,
-    # recurrentgemma's attn_local at its main path's shape and at its
-    # longest prefill that the window still covers, granite's attn_moe and
-    # deepseek's MLA prefill at their main path's shapes
-    for label, B, S, Hq, Hkv, dh, dv, window in (
-            ("main", 4, 128, 14, 2, 64, 64, None),
-            ("long", 1, 4096, 14, 2, 64, 64, None),
-            ("rgemma", 4, 128, 10, 1, 256, 256, 2048),
-            ("rgemma_long", 1, 2048, 10, 1, 256, 256, 2048),
-            ("granite", 4, 128, 16, 8, 64, 64, None),
-            ("deepseek", 4, 128, 16, 16, 192, 128, None)):
+    # (label, B, S, Hq, Hkv, dh, dv, window, softcap): qwen2's main and
+    # long shapes, recurrentgemma's attn_local at its main path's shape and
+    # at its longest prefill that the window still covers, granite's
+    # attn_moe, deepseek's MLA prefill and the dense phase's five models
+    # at their main path's shapes (gemma2's local layers, with their
+    # softcap and query scale; sdpa has no softcap: its row times sdpa
+    # without one)
+    for label, B, S, Hq, Hkv, dh, dv, window, softcap in (
+            ("main", 4, 128, 14, 2, 64, 64, None, None),
+            ("long", 1, 4096, 14, 2, 64, 64, None, None),
+            ("rgemma", 4, 128, 10, 1, 256, 256, 2048, None),
+            ("rgemma_long", 1, 2048, 10, 1, 256, 256, 2048, None),
+            ("granite", 4, 128, 16, 8, 64, 64, None, None),
+            ("deepseek", 4, 128, 16, 16, 192, 128, None, None),
+            ("phi3", 4, 128, 40, 10, 128, 128, None, None),
+            ("nemotron", 4, 128, 48, 8, 128, 128, None, None),
+            ("pixtral", 4, 128, 32, 8, 128, 128, None, None),
+            ("gemma2", 4, 128, 32, 16, 128, 128, g2.window_size,
+             g2.attn_softcap),
+            ("musicgen", 4, 128, 24, 24, 64, 64, None, None)):
         q = _rand(torch, gen, (B, S, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         v = _v(B, S, Hkv, dv)
@@ -3063,26 +3416,36 @@ def phase_times(torch, ops, ref):
         bound, by = _bound(flops, nbytes)
         check(window is None or window >= S,
               "the sdpa yardstick assumes the window covers the sequence")
+        kw = dict(window=window, softcap=softcap,
+                  scale=g2.query_scale if softcap else None)
         def kern():
-            return ops.flash_attention(q, k, v, window=window)
+            return ops.flash_attention(q, k, v, **kw)
         def lib():
-            return sdpa(qt, kt, vt, is_causal=True)
+            return sdpa(qt, kt, vt, is_causal=True, scale=kw["scale"])
         rows[("flash_attention", label)] = dict(
             shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh}"
                   + (f" dv={dv}" if dv != dh else "") + " bf16 causal"
-                  + (f" window={window}" if window else ""),
+                  + (f" window={window}" if window else "")
+                  + (f" softcap={softcap} (sdpa without)" if softcap
+                     else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v, window=window), iters=5),
+                q, k, v, **kw), iters=5),
             library_ms=cuda_ms(torch, lib),
             library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
-    for label, B, S, p, Hq, Hkv, dh, dv, window in (
-            ("main", 4, 256, 143, 14, 2, 64, 64, None),
-            ("long", 8, 4096, 4095, 14, 2, 64, 64, None),
-            ("rgemma", 4, 256, 143, 10, 1, 256, 256, 2048),
-            ("granite", 4, 256, 143, 16, 8, 64, 64, None),
-            ("deepseek", 4, 256, 143, 16, 16, 192, 128, None)):
+    for label, B, S, p, Hq, Hkv, dh, dv, window, softcap in (
+            ("main", 4, 256, 143, 14, 2, 64, 64, None, None),
+            ("long", 8, 4096, 4095, 14, 2, 64, 64, None, None),
+            ("rgemma", 4, 256, 143, 10, 1, 256, 256, 2048, None),
+            ("granite", 4, 256, 143, 16, 8, 64, 64, None, None),
+            ("deepseek", 4, 256, 143, 16, 16, 192, 128, None, None),
+            ("phi3", 4, 256, 143, 40, 10, 128, 128, None, None),
+            ("nemotron", 4, 256, 143, 48, 8, 128, 128, None, None),
+            ("pixtral", 4, 256, 143, 32, 8, 128, 128, None, None),
+            ("gemma2", 4, 256, 143, 32, 16, 128, 128, g2.window_size,
+             g2.attn_softcap),
+            ("musicgen", 4, 256, 143, 24, 24, 64, 64, None, None)):
         q = _rand(torch, gen, (B, 1, Hq, dh), bf16)
         k = _rand(torch, gen, (B, S, Hkv, dh), bf16)
         v = _v(B, S, Hkv, dv)
@@ -3094,17 +3457,21 @@ def phase_times(torch, ops, ref):
         nbytes = (2 * (B * Hkv * valid * (dh + dv) + B * Hq * (dh + dv))
                   + 4 * B)
         bound, by = _bound(flops, nbytes)
+        kw = dict(window=window, softcap=softcap,
+                  scale=g2.query_scale if softcap else None)
         def kern():
-            return ops.decode_attention(q, k, v, pos, window=window)
+            return ops.decode_attention(q, k, v, pos, **kw)
         def lib():
-            return sdpa(qt, kt, vt, attn_mask=mask)
+            return sdpa(qt, kt, vt, attn_mask=mask, scale=kw["scale"])
         rows[("decode_attention", label)] = dict(
             shape=f"B={B} cache={S} pos={p} Hq={Hq} Hkv={Hkv} dh={dh}"
                   + (f" dv={dv}" if dv != dh else "") + " bf16"
-                  + (f" window={window}" if window else ""),
+                  + (f" window={window}" if window else "")
+                  + (f" softcap={softcap} (sdpa without)" if softcap
+                     else ""),
             ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
             plain_ms=cuda_ms(torch, lambda: ref.decode_attention_ref(
-                q, k, v, pos, window=window)),
+                q, k, v, pos, **kw)),
             library_ms=cuda_ms(torch, lib),
             library_device_ms=device_ms(torch, lib),
             bound_ms=bound, bound_by=by)
@@ -3324,7 +3691,8 @@ def main(argv=None) -> int:
     # out, so the next one starts with the card's memory free
     for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
                      ("moe", phase_moe), ("mla", phase_mla),
-                     ("xlstm", phase_xlstm), ("fabric", fabric_in_child),
+                     ("xlstm", phase_xlstm), ("dense", phase_dense),
+                     ("fabric", fabric_in_child),
                      ("launch", phase_launch)):
         if name not in phases:
             continue
@@ -3359,6 +3727,26 @@ def main(argv=None) -> int:
             f"decode device idle share under the profiler "
             f"{r['profile'].get('decode_idle_share', 'not measured')}"
             + (f", MoE share of device time {moe_share}" if moe_share else ""))
+    dense = results["dense"]
+    for arch, tag, _, _, _ in DENSE:
+        r = dense["models"][tag]
+        log(f"e2e {arch} ({r['layers']} layers, {r['bytes'] / 1e9:.3f} GB): "
+            f"cold invoke {r['cold_ms']:.3f} ms (weights "
+            f"{r['cold_timing']['weights'] * 1e3:.3f} ms), freshened invoke "
+            f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
+            f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
+            f"device events per decode step "
+            f"{r['profile'].get('decode_kernels_per_step', 'not measured')}, "
+            f"decode device idle share under the profiler "
+            f"{r['profile'].get('decode_idle_share', 'not measured')}")
+    ch = dense["chain"]
+    log(f"e2e dense chain ({' -> '.join(ch['stages'])}): "
+        + ", ".join(f"{t} {st['invoke_ms']:.3f} ms"
+                    for t, st in ch["stages"].items())
+        + f"; wall {ch['wall_ms']:.3f} ms, freshen "
+        f"{ch['bill']['freshen_s']:.3f} s, useful {ch['bill']['useful']}, "
+        f"mispredicted {ch['bill']['mispredicted']}, peak memory "
+        f"{ch['peak_bytes'] / 1e9:.3f} GB")
     for backend, r in results["fabric"]["backends"].items():
         log(f"e2e qwen2-0.5b on the {backend} backend: cold invoke "
             f"{r['cold_ms']:.3f} ms, freshened invoke {r['freshened_ms']:.3f} "
@@ -3393,6 +3781,9 @@ def main(argv=None) -> int:
     # K3b the recurrentgemma training run; each path's own counts are
     # beside it
     paths = {tag: results[key]["launches"] for key, tag in PATHS}
+    for arch, tag, _, _, _ in DENSE:
+        paths[arch] = dense["models"][tag]["launches"]
+    paths["dense chain"] = dense["chain"]["launches"]
     paths["qwen2-0.5b fabric"] = results["fabric"]["launches"]
     paths["qwen2-0.5b launch"] = results["launch"]["launches"]
     paths["qwen2-0.5b train"] = qtr["launches"]
@@ -3435,7 +3826,8 @@ def main(argv=None) -> int:
             rec["lse_max_err_f32"] = tr["errs"]["lse"]["float32"]
             rec["lse_max_err_bf16"] = tr["errs"]["lse"]["bfloat16"]
         for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate",
-                      "granite", "deepseek", "gemma2", "mla"):
+                      "granite", "deepseek", "gemma2", "mla", "phi3",
+                      "nemotron", "pixtral", "musicgen"):
             if (name, label) in results["times"]:
                 t = results["times"][(name, label)]
                 rec[label] = {k: t[k] for k in keys + ("device_gb_s",)

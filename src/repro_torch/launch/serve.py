@@ -10,20 +10,32 @@ freshen platform and drive synthetic load through a chain.
 
 Without ``--full`` each stage serves the reduced config (d_model 128,
 vocab 256) as the reference launcher does; ``--full`` serves the
-unreduced config.  Weights are random, drawn from ``--seed``.  The
-ported architectures are those whose block kinds the port has:
-``qwen2-0.5b`` (the default), ``recurrentgemma-2b`` (RG-LRU and local
-attention; 2.17 B parameters, 4.39 GB in bf16 per stage at ``--full``),
-``granite-moe-1b-a400m`` (attention and a 32-expert top-8 MoE; 2.7 GB
-per stage at ``--full``), ``deepseek-v2-lite-16b`` (MLA, a dense first
-layer, then 64-expert top-6 MoE layers with 2 shared experts; 31.4 GB
-per stage at ``--full``, not yet run uncut on a card: ROADMAP.md module
-item 3), ``xlstm-350m`` (12 mLSTM and 12 sLSTM blocks; 0.81 GB per
-stage at ``--full``; the mLSTM prefill runs in chunks of 64, so ``--seq``
-must be a multiple of 64 or below it) and ``gemma2-27b`` (held against
-the reference at reduced size only).  An MoE layer dispatches whole
-groups of tokens, so batch x seq must be a multiple of the config's
-``group_size`` (512) or below it.
+unreduced config.  Weights are random, drawn from ``--seed``.  Every
+config of ``repro_torch.configs`` is served; the bytes are one stage's
+bf16 weights at ``--full``:
+
+- ``qwen2-0.5b`` (the default; 0.99 GB);
+- ``recurrentgemma-2b`` (RG-LRU and local attention; 4.29 GB);
+- ``granite-moe-1b-a400m`` (attention and a 32-expert top-8 MoE;
+  2.67 GB);
+- ``deepseek-v2-lite-16b`` (MLA, a dense first layer, then 64-expert
+  top-6 MoE layers with 2 shared experts; 31.4 GB);
+- ``xlstm-350m`` (12 mLSTM and 12 sLSTM blocks; 0.75 GB; the mLSTM
+  prefill runs in chunks of 64, so ``--seq`` must be a multiple of 64
+  or below it);
+- ``musicgen-medium`` (48 layers, 24/24 heads, tanh-GELU MLP; 2.73 GB);
+- ``phi3-medium-14b`` (40/10 heads at dh 128; 29.3 GB);
+- ``nemotron-4-15b`` (48/8 heads, squared-ReLU MLP, vocab 256000;
+  31.3 GB);
+- ``pixtral-12b`` (32/8 heads, ``rope_theta`` 1e6; 24.5 GB);
+- ``gemma2-27b`` (4096-window local layers between global ones,
+  softcaps, post-norms; 54.5 GB).
+
+deepseek and the last five have run on a card at their published
+widths (``chip_smoke.py``: musicgen uncut, the others cut to 4 layers);
+their uncut runs are what remains of ROADMAP.md item 3 ("Served at full
+size").  An MoE layer dispatches whole groups of tokens, so batch x seq
+must be a multiple of the config's ``group_size`` (512) or below it.
 """
 from __future__ import annotations
 # fabriclint: allow-file[clock] -- launch-time measurement harness:

@@ -123,6 +123,14 @@ DECODE_CASES = [
     (4, 256, 10, 1, 32, 256, None, [128, 131, 140, 143]),   # rgemma, ring
     (1, 512, 7, 1, 32, None, None, [0, 63, 64, 511]),       # B * Hkv = 1
     (1, 512, 10, 1, 32, 256, None, [255, 256, 300, 307]),   # ring, split edges
+    # the dense configs' groups: nemotron G 6 and phi3 G 4 at dh 128,
+    # musicgen's MHA at dh 64, gemma2's 32/16 with softcap 50 on a ring
+    # (its local layers, window cut to 320) and without a window (global)
+    (4, 272, 48, 8, 128, None, None, [128, 131, 140, 271]),
+    (4, 264, 40, 10, 128, None, None, [128, 131, 140, 263]),
+    (4, 200, 24, 24, 64, None, None, [128, 131, 140, 199]),
+    (1, 320, 32, 16, 128, 320, 50.0, [319, 320, 400, 407]),
+    (2, 288, 32, 16, 128, None, 50.0, [287, 150]),
 ]
 
 
@@ -254,6 +262,13 @@ FLASH_CASES = [
     (1, 64, 64, 4, 2, 32, 32, False, 16, None, 100),       # no row sees a key
     (4, 128, 128, 10, 1, 256, 256, True, 2048, None, 0),   # rgemma main path
     (1, 300, 300, 10, 1, 256, 256, True, 256, None, 0),    # rgemma, window masks
+    # the dense configs' prefills: nemotron 48/8 and phi3 40/10 at dh 128,
+    # musicgen 24/24 at dh 64, gemma2's local layers (32/16, softcap 50,
+    # window cut to 64 so that it masks)
+    (2, 128, 128, 48, 8, 128, 128, True, None, None, 0),
+    (2, 128, 128, 40, 10, 128, 128, True, None, None, 0),
+    (2, 128, 128, 24, 24, 64, 64, True, None, None, 0),
+    (1, 200, 200, 32, 16, 128, 128, True, 64, 50.0, 0),
 ]
 
 

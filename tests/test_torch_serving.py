@@ -281,10 +281,13 @@ def test_endpoint_defaults_to_cuda_and_refuses_cpu_fallback(setup):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b",
                                   "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b", "xlstm-350m"])
+                                  "deepseek-v2-lite-16b", "xlstm-350m",
+                                  "gemma2-27b", "phi3-medium-14b",
+                                  "nemotron-4-15b", "pixtral-12b",
+                                  "musicgen-medium"])
 def test_serve_launcher_on_cpu(arch, capsys):
-    """``python -m repro_torch.launch.serve --device cpu``: each served
-    architecture's reduced config through a freshened two-stage chain."""
+    """``python -m repro_torch.launch.serve --device cpu``: every
+    config's reduced model through a freshened two-stage chain."""
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--arch", arch, "--requests", "2"])
     out = capsys.readouterr().out
