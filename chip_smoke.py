@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py                      # every phase, one card
   python3 chip_smoke.py --phases env,build,parity   # compile and check
+  python3 chip_smoke.py --phases env,build,parity,rollout  # and the drivers
 
 Phases, each of which raises on failure (exit code 1):
 
@@ -174,7 +175,30 @@ Phases, each of which raises on failure (exit code 1):
    tokens/s, peak memory and one profiled step (idle share, the shares
    of device time of K3b, K3 and K1b; trace in
    ``build/profile/train_rgemma``);
-13. times: each kernel, its plain version, the PyTorch library call and
+13. rollout: the port's counterparts of the ``examples/`` drivers on the
+   card, qwen2-0.5b uncut in bf16, batch 4 x prompt 128.  (a) The
+   quickstart's cases at model scale on one endpoint served from a store
+   holding v1 (seed 0): a cold invoke; ``freshen(blocking=True)`` then
+   an invoke; ``freshen(blocking=False)`` then an invoke that waits for
+   the weight load in flight (``FrWait``); a second invoke, a hit; v2,
+   trained from v1 by ``examples/train_small``'s body (2 ``Trainer``
+   steps of batch 4 x 1024 in 2 microbatches, its own launch window: K1
+   132 and K1b 48 a step) and published into the same store, which the
+   next invoke finds stale and refetches inline (one more inline on the
+   weights entry, the card's peak memory printed); v3, one step further,
+   freshened before the invoke, which runs nothing inline.  Each case
+   prints its invoke ms, ``timing`` parts, freshen stats and K1 launches
+   (24 a forward); the logits of cases 1-4 are the cold invoke's bit for
+   bit, and v2's and v3's a fresh endpoint's on that version alone.  (b)
+   ``examples/serve_chain``'s pipeline at full width: three uncut
+   qwen2-0.5b endpoints (seeds 0-2; the example's stages differ only in
+   d_model, which at full width is the published 896 for all three), 8
+   requests through ``Batcher``s, each batch one row padded to 4, with
+   freshen off, then on: per stage first, p50 and max ms, the wall
+   time, the bill, ``latency_summary`` and each pool's counters; every
+   request's logits bit for bit the same in both runs, nothing inline
+   downstream with freshen on, K1 24 a forward;
+14. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes (the dense phase's five
    too; gemma2's K1 and K2 with softcap 50, sdpa's without) and a long
    one (K3 also at
@@ -207,7 +231,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "dense", "fabric", "launch", "train", "times")
+          "dense", "fabric", "launch", "train", "rollout", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
@@ -3324,6 +3348,335 @@ def phase_train(torch, np, ops, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase rollout: a trained version reaching a served endpoint, and the
+# example chain with freshen off and on
+ROLLOUT_ARCH = "qwen2-0.5b"
+ROLLOUT_NAME = "qwen2"
+ROLLOUT_SHAPE = (4, 128)                # batch, prompt: the served shape
+ROLLOUT_TRAIN = (4, 1024, 2)            # batch, sequence, microbatches
+ROLLOUT_STEPS = {2: 2, 3: 1}            # Trainer steps to make v2, v3
+ROLLOUT_REQUESTS = 8                    # through the chain, per mode
+
+
+def rollout_invoke(np, ops, eng, rt, prompt, per_fwd, case, *, forwards):
+    """One invoke of the rollout's endpoint on ``eng``: its ms, the
+    ``timing`` parts, the runtime's freshen stats and its inline count by
+    entry, and its K1 launches, which must be ``forwards`` forwards'."""
+    c0 = _counts(ops)
+    t0 = time.perf_counter()
+    res = eng.invoke(ROLLOUT_NAME, prompt, freshen_successors=False)
+    ms = _ms_since(t0)
+    rt.join_freshen(timeout=CHAIN_JOIN_S)
+    launches = _delta(c0, _counts(ops))
+    check(launches == _times(per_fwd, forwards),
+          f"rollout {case}: launches {launches} != {forwards} forwards of "
+          f"{per_fwd}")
+    logits = res["logits"]
+    check(logits.shape == (prompt.shape[0], 1, logits.shape[-1])
+          and bool(np.isfinite(logits).all()),
+          f"rollout {case}: logits {logits.shape} not finite or misshapen")
+    out = dict(ms=ms, timing=res["timing"], stats=rt.fr_state.stats(),
+               inline=[e.inline_count for e in rt.fr_state.entries],
+               launches=launches, logits=logits)
+    timing_ms = {k: round(v * 1e3, 2) for k, v in res["timing"].items()}
+    log(f"rollout {case}: invoke {ms:.1f} ms (timing "
+        f"{json.dumps(timing_ms)} ms), stats {out['stats']}, "
+        f"inline by entry {out['inline']}, K1 {launches['flash_attention']} "
+        f"= {forwards} x {per_fwd['flash_attention']}")
+    return out
+
+
+def rollout_train(torch, np, ops, cfg, params, version):
+    """``examples/train_small``'s body on the card from ``params``: batch
+    4 x 1024 in 2 microbatches, its own launch window (K1 132 and K1b 48
+    a step under remat)."""
+    from repro_torch.examples import train_small
+    from repro_torch.train import OptimizerConfig
+    B, S, MB = ROLLOUT_TRAIN            # train_small's 2 microbatches
+    steps = ROLLOUT_STEPS[version]
+    c0 = _counts(ops)
+    t0 = time.perf_counter()
+    trainer = train_small.train(
+        cfg, "cuda", params, steps=steps, batch=B, seq=S,
+        opt_cfg=OptimizerConfig(peak_lr=1e-3, warmup_steps=1,
+                                total_steps=steps))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _delta(c0, _counts(ops))
+    per_step = train_window(cfg, MB)
+    check(launches == _times(per_step, steps),
+          f"rollout v{version} training launches {launches} != {steps} x "
+          f"{per_step}")
+    hist = trainer.history
+    check(all(np.isfinite(h["loss"]) for h in hist),
+          f"rollout v{version} training losses {hist}")
+    log(f"rollout v{version}: {steps} Trainer steps (batch {B} x {S}, {MB} "
+        f"microbatches) in {wall:.2f} s, losses "
+        f"{[round(h['loss'], 4) for h in hist]}, step ms "
+        f"{[round(h['seconds'] * 1e3, 1) for h in hist]}; K1 "
+        f"{launches['flash_attention']}, K1b "
+        f"{launches['flash_attention_bwd']} = {steps} x "
+        f"{per_step['flash_attention']} / {per_step['flash_attention_bwd']}")
+    return trainer.params, dict(steps=steps, wall_s=wall, launches=launches,
+                                losses=[h["loss"] for h in hist],
+                                step_ms=[h["seconds"] * 1e3 for h in hist])
+
+
+def rollout_fresh(np, cfg, params, tmp_root, prompt, engines):
+    """The logits of a fresh endpoint on a store holding only ``params``."""
+    from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine,
+                                     WeightStore)
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="only-"))
+    store.publish(ROLLOUT_NAME, params)
+    eng = ServingEngine()
+    engines.append(eng)
+    B, S = ROLLOUT_SHAPE
+    eng.deploy(ModelEndpoint(ROLLOUT_NAME, cfg, store, Executor(),
+                             batch_size=B, seq_len=S, device="cuda"))
+    return eng.invoke(ROLLOUT_NAME, prompt, freshen_successors=False)["logits"]
+
+
+def rollout_versions(torch, np, ops, cfg, tmp_root, engines):
+    """The quickstart's cases at model scale on one endpoint served from
+    a store that holds v1 (seed 0): a cold invoke; freshen(blocking) then
+    invoke; freshen(non-blocking) then an invoke that waits for it; a
+    second invoke (a hit); v2, trained from v1 and published into the
+    same store, refetched inline by the next invoke; v3, freshened before
+    the invoke, which then runs nothing inline.  Each version's logits
+    must be a fresh endpoint's on that version alone, bit for bit."""
+    from repro_torch.core.freshen import FrState
+    from repro_torch.models import make_model
+    from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine,
+                                     WeightStore)
+    B, S = ROLLOUT_SHAPE
+    per_fwd = {"flash_attention": cfg.n_layers, "decode_attention": 0,
+               "rglru_scan": 0, **NO_BWD}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               size=(B, S), dtype=np.int32)
+    store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
+    params = make_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    out: dict = {"publish_s": {1: _publish(store, ROLLOUT_NAME, params)},
+                 "cases": {}, "train": {}}
+    cases = out["cases"]
+
+    def deploy():
+        eng = ServingEngine()
+        engines.append(eng)
+        return eng, eng.deploy(ModelEndpoint(
+            ROLLOUT_NAME, cfg, store, Executor(), batch_size=B, seq_len=S,
+            device="cuda"))
+
+    with _closing_new(torch, engines):
+        eng, rt = deploy()
+        cases["1 no freshen"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd, "1 no freshen (cold)",
+            forwards=2)
+        check(c["inline"] == [1, 1, 1], f"cold invoke inline {c['inline']}")
+    with _closing_new(torch, engines):
+        eng, rt = deploy()
+        c0 = _counts(ops)
+        t0 = time.perf_counter()
+        rt.freshen(blocking=True)
+        fr_ms = _ms_since(t0)
+        check(_delta(c0, _counts(ops)) == per_fwd,
+              f"blocking freshen launches {_delta(c0, _counts(ops))}")
+        cases["2 freshen-before"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd,
+            f"2 freshen-before (freshen {fr_ms:.1f} ms)", forwards=1)
+        c["freshen_ms"] = fr_ms
+        check(c["inline"] == [0, 0, 0] and c["stats"]["freshened"] == 3,
+              f"freshened invoke: {c['stats']}")
+    with _closing_new(torch, engines):      # one endpoint for cases 3-6
+        eng, rt = deploy()
+        rt.freshen(blocking=False)        # the prediction arrived late
+        check(_wait_until(lambda: rt.fr_state.entries[0].state
+                          is FrState.RUNNING, 30.0),
+              "the non-blocking freshen never started its weight load")
+        cases["3 freshen-concurrent"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd,
+            "3 freshen-concurrent (waits via FrWait)", forwards=2)
+        check(c["inline"][0] == 0 and c["stats"]["waits"] >= 1,
+              f"concurrent invoke: {c['stats']}, inline {c['inline']}")
+        cases["4 hit"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd, "4 second invoke (hit)",
+            forwards=1)
+        check(c["inline"] == cases["3 freshen-concurrent"]["inline"],
+              f"the second invoke ran {c['inline']} inline")
+        v1 = cases["1 no freshen"]["logits"]
+        for k in ("2 freshen-before", "3 freshen-concurrent", "4 hit"):
+            check(np.array_equal(cases[k]["logits"], v1),
+                  f"rollout case {k}: logits differ from the cold invoke's")
+
+        # ---- v2: trained from v1, published into the served store -------
+        base_inline = list(cases["4 hit"]["inline"])
+        params2, out["train"][2] = rollout_train(torch, np, ops, cfg,
+                                                  params, 2)
+        del params
+        out["publish_s"][2] = _publish(store, ROLLOUT_NAME, params2)
+        check(store.version(ROLLOUT_NAME) == 2, "v2 was not published")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cases["5 v2 stale"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd,
+            "5 v2 published: the invoke refetches the weights inline",
+            forwards=1)
+        c["held_bytes"] = held
+        c["peak_bytes"] = torch.cuda.max_memory_allocated()
+        check(c["inline"] == [base_inline[0] + 1] + base_inline[1:],
+              f"v2 invoke inline {c['inline']} after {base_inline}")
+        check(not np.array_equal(c["logits"], v1), "v2's logits are v1's")
+        with _closing_new(torch, engines):
+            want = rollout_fresh(np, cfg, params2, tmp_root, prompt, engines)
+        check(np.array_equal(c["logits"], want),
+              f"v2's refetched logits differ from a fresh v2 endpoint's (max "
+              f"|diff| {np.abs(c['logits'] - want).max()})")
+        log(f"rollout v2: the refetch held {held / 1e9:.3f} GB before and "
+            f"peaked at {c['peak_bytes'] / 1e9:.3f} GB (v1 and v2 both on the "
+            f"card for a moment); logits bit for bit a fresh v2 endpoint's")
+
+        # ---- v3: freshened before the invoke ----------------------------
+        params3, out["train"][3] = rollout_train(torch, np, ops, cfg,
+                                                  params2, 3)
+        del params2
+        out["publish_s"][3] = _publish(store, ROLLOUT_NAME, params3)
+        base_inline = list(c["inline"])
+        c0 = _counts(ops)
+        t0 = time.perf_counter()
+        rt.freshen(blocking=True)
+        fr_ms = _ms_since(t0)
+        check(_delta(c0, _counts(ops)) == _times(per_fwd, 0),
+              f"v3 freshen launches {_delta(c0, _counts(ops))}")
+        cases["6 v3 freshened"] = c = rollout_invoke(
+            np, ops, eng, rt, prompt, per_fwd,
+            f"6 v3 published, freshen-before ({fr_ms:.1f} ms): nothing "
+            "inline",
+            forwards=1)
+        c["freshen_ms"] = fr_ms
+        check(c["inline"] == base_inline,
+              f"v3 invoke inline {c['inline']} after {base_inline}")
+        check(not np.array_equal(c["logits"],
+                                 cases["5 v2 stale"]["logits"]),
+              "v3's logits are v2's")
+        with _closing_new(torch, engines):
+            want = rollout_fresh(np, cfg, params3, tmp_root, prompt, engines)
+        check(np.array_equal(c["logits"], want),
+              "v3's logits differ from a fresh v3 endpoint's")
+        del params3
+    for k in cases:
+        cases[k].pop("logits")
+    return out
+
+
+def rollout_chain(torch, np, ops, cfg, tmp_root, engines):
+    """``examples/serve_chain``'s pipeline at full width: three uncut
+    endpoints (seeds 0, 1, 2), 8 requests through ``Batcher``s with
+    freshen off, then on; each request's logits bit for bit the same in
+    both runs, nothing inline downstream with freshen on."""
+    from repro_torch.examples import serve_chain
+    B, S = ROLLOUT_SHAPE
+    R = ROLLOUT_REQUESTS
+    cfgs = {s: cfg for s in serve_chain.STAGES}
+    dims = ", ".join(str(d) for d in serve_chain.DIMS.values())
+    log(f"rollout chain: {' -> '.join(cfgs)}; the example's stages differ "
+        f"only in d_model ({dims}); at full width all three take the "
+        f"published {cfg.d_model}: {cfg.name} uncut, {cfg.dtype}, seeds "
+        f"0-2, batch {B} x {S}, {R} requests a mode")
+    t0 = time.perf_counter()
+    store = serve_chain.publish_stages(
+        cfgs, "cuda", root=tempfile.mkdtemp(dir=tmp_root, prefix="chain-"))
+    torch.cuda.empty_cache()
+    out: dict = {"publish_s": time.perf_counter() - t0, "modes": {}}
+    runs = {}
+    for mode in (False, True):
+        with _closing_new(torch, engines):
+            eng, stages = serve_chain.build(mode, cfgs, store, seq=S,
+                                            device="cuda")
+            engines.append(eng)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = _counts(ops)
+            lat, wall, outputs = serve_chain.run_pipeline(eng, stages, R,
+                                                          mode)
+            launches = _delta(c0, _counts(ops))
+            serve_chain.report(eng, stages, lat, wall, R, mode)
+            pools = eng.platform_stats()
+            bill = eng.scheduler.accountant.bill("serving")
+            summary = eng.scheduler.accountant.latency_summary("serving")
+            m = dict(
+                wall_s=wall, launches=launches,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                stages={s: dict(first_ms=lat[s][0] * 1e3,
+                                p50_ms=float(np.percentile(lat[s], 50)) * 1e3,
+                                max_ms=max(lat[s]) * 1e3, batches=len(lat[s]))
+                        for s in stages},
+                bill=dict(function_s=bill.function_seconds,
+                          freshen_s=bill.freshen_seconds,
+                          useful=bill.useful_freshens,
+                          mispredicted=bill.mispredicted_freshens,
+                          cold_starts=bill.cold_starts),
+                latency={k: summary[k] for k in ("p50", "p95", "p99",
+                                                 "mean_queue_delay")},
+                pools={s: {k: pools[s][k] for k in (
+                    "instances", "cold_starts", "hits", "inline", "waits",
+                    "freshened")} for s in stages})
+        runs[mode] = outputs
+        label = "on" if mode else "off"
+        out["modes"][label] = m
+        forwards = 3 * R + sum(p["instances"] for p in m["pools"].values())
+        want = _times({"flash_attention": cfg.n_layers, "decode_attention": 0,
+                       "rglru_scan": 0, **NO_BWD}, forwards)
+        check(launches == want,
+              f"chain freshen {label}: launches {launches} != {want} "
+              f"({forwards} forwards)")
+        check(all(len(lat[s]) == R for s in stages),
+              f"chain freshen {label}: batches {[len(lat[s]) for s in stages]}"
+              f" for {R} requests")
+        log(f"rollout chain freshen {label}: wall {wall * 1e3:.1f} ms, "
+            f"peak memory {m['peak_bytes'] / 1e9:.3f} GB, K1 "
+            f"{launches['flash_attention']} = {forwards} forwards x "
+            f"{cfg.n_layers}; stages " + json.dumps(
+                {s: {k: round(v, 2) for k, v in st.items()}
+                 for s, st in m["stages"].items()}))
+    stages = list(cfgs)
+    inline_on = [out["modes"]["on"]["pools"][s]["inline"] for s in stages]
+    check(inline_on[1:] == [0, 0],
+          f"freshen on: downstream stages ran {inline_on} inline")
+    for s in stages:
+        for i, ((x, lo), (x_on, lo_on)) in enumerate(zip(runs[False][s],
+                                                         runs[True][s])):
+            check(np.array_equal(x, x_on) and np.array_equal(lo, lo_on),
+                  f"chain {s} request {i}: freshen off and on differ")
+    log(f"rollout chain: {3 * R} logits rows bit for bit with freshen off "
+        f"and on; inline by stage with freshen on {inline_on}")
+    return out
+
+
+def phase_rollout(torch, np, ops, tmp_root, engines):
+    """qwen2-0.5b uncut, bf16, batch 4 x prompt 128: (a) a trained version
+    rolled out to a served endpoint through freshen, (b) the example
+    chain with freshen off and on."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ROLLOUT_ARCH)
+    log(f"rollout: {cfg.name} uncut, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.dtype}, batch {ROLLOUT_SHAPE[0]}, prompt "
+        f"{ROLLOUT_SHAPE[1]}")
+    ops.reset_launches()                  # the rollout's run starts
+    t0 = time.perf_counter()
+    out = {"versions": rollout_versions(torch, np, ops, cfg, tmp_root,
+                                        engines)}
+    t1 = time.perf_counter()
+    out["chain"] = rollout_chain(torch, np, ops, cfg, tmp_root, engines)
+    out["launches"] = _counts(ops)        # ... and ends here
+    out["seconds"] = {"versions": t1 - t0,
+                      "chain": time.perf_counter() - t1}
+    log("rollout seconds by part " + json.dumps(
+        {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase times
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
@@ -3687,15 +4040,9 @@ def main(argv=None) -> int:
         results["build_s"] = timed("build", phase_build, torch, ops)
     if "parity" in phases:
         results["errs"] = timed("parity", phase_parity, torch, ops, ref)
-    # each served path closes its engines and drops its weights on the way
-    # out, so the next one starts with the card's memory free
-    for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
-                     ("moe", phase_moe), ("mla", phase_mla),
-                     ("xlstm", phase_xlstm), ("dense", phase_dense),
-                     ("fabric", fabric_in_child),
-                     ("launch", phase_launch)):
-        if name not in phases:
-            continue
+    def served(name, fn):
+        # a served path closes its engines and drops its weights on the way
+        # out, so the next one starts with the card's memory free
         tmp_root = tempfile.mkdtemp(prefix="chip-smoke-")
         engines: list = []
         try:
@@ -3706,8 +4053,18 @@ def main(argv=None) -> int:
             engines.clear()
             shutil.rmtree(tmp_root, ignore_errors=True)
             torch.cuda.empty_cache()
+
+    for name, fn in (("main", phase_main), ("rgemma", phase_rgemma),
+                     ("moe", phase_moe), ("mla", phase_mla),
+                     ("xlstm", phase_xlstm), ("dense", phase_dense),
+                     ("fabric", fabric_in_child),
+                     ("launch", phase_launch)):
+        if name in phases:
+            served(name, fn)
     if "train" in phases:
         results["train"] = timed("train", phase_train, torch, np, ops, ref)
+    if "rollout" in phases:
+        served("rollout", phase_rollout)
     if "times" in phases:
         results["times"] = timed("times", phase_times, torch, ops, ref)
     if not set(PHASES) <= set(phases):
@@ -3762,6 +4119,24 @@ def main(argv=None) -> int:
         f"{la['train']['step_ms'][-1]:.3f} ms vs "
         f"{la['train']['plain_step_ms'][-1]:.3f} ms; logits bit for bit "
         f"{la['serve']['bit_for_bit']}")
+    ro = results["rollout"]
+    ro_cases = ro["versions"]["cases"]
+    log("e2e qwen2-0.5b rollout (bf16, batch 4 x 128): "
+        + ", ".join(f"case {k} {c['ms']:.3f} ms (weights "
+                    f"{c['timing']['weights'] * 1e3:.3f} ms, inline "
+                    f"{c['inline']})" for k, c in ro_cases.items())
+        + f"; refetch peak memory "
+        f"{ro_cases['5 v2 stale']['peak_bytes'] / 1e9:.3f} GB")
+    for label, m in ro["chain"]["modes"].items():
+        log(f"e2e qwen2-0.5b chain of 3, freshen {label}, "
+            f"{ROLLOUT_REQUESTS} requests: wall {m['wall_s'] * 1e3:.3f} ms, "
+            + ", ".join(f"{s} first {st['first_ms']:.3f} p50 "
+                        f"{st['p50_ms']:.3f} max {st['max_ms']:.3f} ms"
+                        for s, st in m["stages"].items())
+            + f", latency p50 {m['latency']['p50'] * 1e3:.3f} p95 "
+            f"{m['latency']['p95'] * 1e3:.3f} p99 "
+            f"{m['latency']['p99'] * 1e3:.3f} ms, inline by stage "
+            f"{[p['inline'] for p in m['pools'].values()]}")
     tr = results["train"]
     qtr, rtr = (tr["full"][a] for a in ("qwen2-0.5b", "recurrentgemma-2b"))
     for arch, t, shares in (("qwen2-0.5b", qtr, ("k1b", "k1")),
@@ -3787,6 +4162,7 @@ def main(argv=None) -> int:
     paths["qwen2-0.5b fabric"] = results["fabric"]["launches"]
     paths["qwen2-0.5b launch"] = results["launch"]["launches"]
     paths["qwen2-0.5b train"] = qtr["launches"]
+    paths["qwen2-0.5b rollout"] = ro["launches"]
     paths["recurrentgemma-2b train"] = rtr["launches"]
     train_path = {"flash_attention_bwd": "qwen2-0.5b train",
                   "rglru_scan_bwd": "recurrentgemma-2b train"}

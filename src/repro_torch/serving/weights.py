@@ -28,6 +28,9 @@ class WeightStore:
         os.makedirs(root, exist_ok=True)
         self._versions: dict[str, int] = {}
         self._lock = threading.Lock()
+        # the store's control plane: one publish at a time, so versions
+        # and files advance together
+        self._admin = threading.Lock()
         self.load_count = 0
 
     def _path(self, name: str) -> str:
@@ -36,11 +39,18 @@ class WeightStore:
     # ------------------------------------------------------------------
     def publish(self, name: str, params) -> int:
         """Store a new weight version; returns the version number.  The
-        file is the reference layout, so the JAX package loads it too."""
-        with self._lock:
-            v = self._versions.get(name, 0) + 1
-            self._versions[name] = v
-        save_pytree(self._path(name), params, metadata={"version": v})
+        file is the reference layout, so the JAX package loads it too.
+
+        The version moves only once the new file is in place: a load
+        while the file is written reads the old file under the old
+        version, so the endpoint finds it stale afterwards.  (The
+        reference bumps first, and a load in that window records the new
+        version beside the old weights.)"""
+        with self._admin:
+            v = self.version(name) + 1
+            save_pytree(self._path(name), params, metadata={"version": v})
+            with self._lock:
+                self._versions[name] = v
         return v
 
     def version(self, name: str) -> int:
