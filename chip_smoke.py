@@ -41,11 +41,21 @@ Phases, each of which raises on failure (exit code 1):
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
-   generation endpoint decoding 16 tokens; launch counts checked per
-   forward and per decode step; the bfloat16 kernel path compared with
-   the reference path, teacher-forced; a torch.profiler trace of a
-   prefill and 4 decode steps (device-busy time, idle share; trace in
-   ``build/profile/``); the float32 model held against its
+   generation endpoint decoding 16 tokens; every served step runs as a
+   CUDA graph the freshen (or a cold invoke's inline warm-up) captured,
+   and a served run checks that the freshened invokes and the freshened
+   generation capture nothing inline and that the warm invoke's logits
+   and the generated tokens are the eager step's (the step function
+   called directly on the instance's params) bit for bit; launch counts
+   checked per forward and per decode step, a replay counting the
+   launches its graph recorded (a cold invoke: the warm-up's run before
+   the capture and the replay); the bfloat16 kernel path compared with
+   the reference path, teacher-forced; the served graphs: each one's
+   capture seconds and pool bytes, the replayed decode step per token
+   (host-synced) and its device idle share from CUDA events
+   (``replay_idle``), and a torch.profiler trace of a replayed prefill
+   and 4 replayed decode steps (device-busy time, device kernels per
+   step; trace in ``build/profile/``); the float32 model held against its
    ``force_reference`` run, teacher-forced (every step's logits within
    1e-3) and served (last-position logits within 1e-3, identical tokens);
 5. rgemma: full-width recurrentgemma-2b (26 layers, 18 RG-LRU through K3
@@ -61,9 +71,8 @@ Phases, each of which raises on failure (exit code 1):
    top-8 MoE FFN; bfloat16) served the same way, with its own launch-count
    window (24 K1 per forward, 24 K2 per decode step), the dropped MoE
    assignments of one forward, an ungated bf16 kernel-vs-reference
-   comparison (logit diff, share of routing that agreed) and a profiler
-   pass that also splits the MoE layers' device time into routing,
-   dispatch, expert GEMMs and combine; then the float32 gate on a copy
+   comparison (logit diff, share of routing that agreed) and the
+   profiler pass; then the float32 gate on a copy
    cut to 4 layers: both dispatches (``einsum``, ``gather``) at prompts
    128 and 256 (two dispatch groups), teacher-forced against
    ``force_reference``;
@@ -198,7 +207,16 @@ Phases, each of which raises on failure (exit code 1):
    time, the bill, ``latency_summary`` and each pool's counters; every
    request's logits bit for bit the same in both runs, nothing inline
    downstream with freshen on, K1 24 a forward;
-14. times: each kernel, its plain version, the PyTorch library call and
+14. graphs: the served steps as CUDA graphs beside the eager steps, for
+   qwen2-0.5b, recurrentgemma-2b, granite-moe-1b-a400m and xlstm-350m
+   uncut and phi3-medium-14b cut to 4 layers (bf16, batch 4, prompt 128,
+   cache 256, 16 tokens): the score step (the invoke's execute part,
+   logits to the host) and each decode step eager and replayed (host-
+   synced medians), every logit of a greedy session bit for bit; each
+   graph's warm run, capture-and-instantiate seconds, memory pool bytes
+   and the launches it recorded (K1, K2, K3 inside); a replayed decode
+   step's device idle share from CUDA events (``replay_idle``);
+15. times: each kernel, its plain version, the PyTorch library call and
    the bound, at each served model's shapes (the dense phase's five
    too; gemma2's K1 and K2 with softcap 50, sdpa's without) and a long
    one (K3 also at
@@ -231,13 +249,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("env", "build", "parity", "main", "rgemma", "moe", "mla", "xlstm",
-          "dense", "fabric", "launch", "train", "rollout", "times")
+          "dense", "fabric", "launch", "train", "rollout", "graphs", "times")
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
-MOE_STAGES = ("routing", "dispatch", "experts", "combine")
 MOE_KINDS = ("attn_moe", "mla_moe")
 ROUTING_FLIP_MARGIN = 1e-5        # a flip above this gate gap fails
 F32_LOGIT_TOL = 1e-3
@@ -900,12 +917,13 @@ def _times(counts, n):
 
 
 def gen_spec(ep, name, n_tok, max_len):
-    """A generation function on ``ep``'s plan plus its session entries."""
+    """A generation function on ``ep``'s plan plus its session entries,
+    the session's steps captured against its cache among them."""
     from repro_torch.core import FunctionSpec
 
     def plan_factory(rt):
         base = ep.build_plan(rt)
-        base.entries.extend(ep.session_plan_entries(max_len))
+        base.entries.extend(ep.session_plan_entries(max_len, rt))
         return base
 
     def code(ctx, args):
@@ -915,11 +933,13 @@ def gen_spec(ep, name, n_tok, max_len):
 
 
 def serve(np, ops, cfg_, store, name, tag, prompt, engines, *, max_len,
-          n_tok):
+          n_tok, trace_dir=None):
     """Through ``ServingEngine`` on the card: a cold invoke, a freshened
     one, a warm one, and a generation of ``n_tok`` tokens from a
-    freshened session cache.  Every engine goes into ``engines`` for the
-    caller to close."""
+    freshened session cache; then the served graphs themselves
+    (``served_graphs``: capture seconds, pool bytes, the replayed decode
+    step's ms and idle share, with ``trace_dir`` the profiler pass).
+    Every engine goes into ``engines`` for the caller to close."""
     from repro_torch.serving import (Executor, ModelEndpoint, ServingEngine)
     B, S = prompt.shape
     res = {}
@@ -962,22 +982,156 @@ def serve(np, ops, cfg_, store, name, tag, prompt, engines, *, max_len,
               f"{tag} logits not finite")
     check(np.array_equal(cold["logits"], fresh["logits"]),
           f"{tag} cold and freshened logits differ")
+    for label, r in (("freshened", fresh), ("warm", warm)):
+        check("capture" not in r["timing"],
+              f"{tag} {label} invoke captured inline: {r['timing']}")
     res["logits"] = warm["logits"]
 
     rt_gen = eng.scheduler.register(
         gen_spec(ep, f"{name}/generate", n_tok, max_len))
     rt_gen.init()
     rt_gen.freshen(blocking=True)
+    st = rt_gen.fr_state.stats()
+    check(st["inline"] == 0 and st["freshened"] == 6,
+          f"{tag} generation freshen left {st}")
+    captures = _captures(ep)
     c0 = _counts(ops)
     t0 = time.perf_counter()
     tokens = eng.invoke(f"{name}/generate", prompt, freshen_successors=False)
     res["generate_ms"] = (time.perf_counter() - t0) * 1e3
     res["generate_launches"] = _delta(c0, _counts(ops))
+    check(_captures(ep) == captures and rt_gen.fr_state.stats()["inline"] == 0,
+          f"{tag} the freshened generation captured inline")
     check(len(tokens) == n_tok and all(0 <= t < cfg_.vocab_size
                                        for t in tokens),
           f"{tag} generated {tokens}")
     res["tokens"] = tokens
+    with uncounted(ops):
+        eager_check(np, ep, rt, prompt, res, tag, max_len=max_len,
+                    n_tok=n_tok)
+        res["graphs"] = served_graphs(rt, rt_gen, prompt, tag, n_tok=n_tok,
+                                      trace_dir=trace_dir)
+    res["profile"] = res["graphs"].pop("profile", {})
     return res
+
+
+def served_graphs(rt, rt_gen, prompt, tag, *, n_tok, trace_dir):
+    """The served path's own graphs, driven as the engine drives them:
+    the score step its warm-up entry holds and the prefill and decode
+    steps its generation's session entry holds.  Each one's warm run,
+    capture seconds and pool bytes; a greedy session of ``n_tok`` tokens
+    on them (each decode step host-synced and timed: the per-token
+    figure); the replayed decode step's idle share from CUDA events
+    (``replay_idle``); with ``trace_dir`` the profiler pass
+    (``profile_steps``) over a replayed prefill and 4 replayed decode
+    steps."""
+    import threading
+    import torch
+    from repro_torch.serving.engine import _entry_index
+    score = rt.fr_state.entries[_entry_index(rt, "warmup")].result.step
+    pre, dec = rt_gen.fr_state.entries[
+        _entry_index(rt_gen, "session_graphs")].result
+    out = {}
+    for name, g in (("score", score), ("prefill", pre), ("decode", dec)):
+        check(g.graph is not None, f"{tag} {name} step is not a graph")
+        out[name] = dict(warm_s=g.warm_seconds, capture_s=g.capture_seconds,
+                         pool_bytes=pool_bytes(torch, g.graph))
+    toks = torch.as_tensor(prompt, device=score.compiled.device)
+    _, _, ms, (tok, pos) = greedy_session(torch, pre, dec, toks, n_tok)
+    out["decode_ms"] = _median(ms)
+    out["decode_idle"], out["decode_busy_ms"], out["decode_period_ms"] = \
+        replay_idle(torch, dec, tok, pos)
+    out["threads"] = threading.active_count()
+    log(f"{tag} replayed decode step (per token) {out['decode_ms']:.3f} ms "
+        f"host-synced; device idle share {out['decode_idle']:.4f} from CUDA "
+        f"events (busy {out['decode_busy_ms']:.4f} ms of a "
+        f"{out['decode_period_ms']:.4f} ms step, {out['threads']} threads "
+        f"alive); "
+        + ", ".join(f"{k} warm run {out[k]['warm_s']:.3f} s, capture "
+                    f"{out[k]['capture_s']:.3f} s, pool {_mib(out[k])}"
+                    for k in ("score", "prefill", "decode")))
+    if trace_dir is not None:
+        out["profile"] = profile_steps(torch, pre, dec, toks, trace_dir)
+    return out
+
+
+def _served_line(r):
+    """A served path's figures: the invokes, the generation and its
+    replayed decode step, the eager step's time in brackets."""
+    g, prof = r["graphs"], r["profile"]
+    return (
+        f"cold invoke {r['cold_ms']:.3f} ms, freshened invoke "
+        f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
+        f"generate 16 tokens {r['generate_ms']:.3f} ms, decode step (per "
+        f"token, batch 4) replayed {g['decode_ms']:.3f} ms [eager "
+        f"{r['decode_step_ms']:.3f} ms], replayed decode device idle share "
+        f"{g['decode_idle']:.4f} from CUDA events "
+        f"({prof.get('decode_idle_share', 'not measured')} on the host "
+        f"clock under the profiler, "
+        f"{prof.get('decode_kernels_per_step', 'not measured')} device "
+        f"events per step), capture s score {g['score']['capture_s']:.3f} "
+        f"prefill {g['prefill']['capture_s']:.3f} decode "
+        f"{g['decode']['capture_s']:.3f}, pool score {_mib(g['score'])} "
+        f"prefill {_mib(g['prefill'])} decode {_mib(g['decode'])}")
+
+
+def _mib(g):
+    pb = g["pool_bytes"]
+    return "not measured" if pb is None else f"{pb / 2**20:.1f} MiB"
+
+
+def _captures(ep):
+    return sum(len(v) for v in ep.executor.capture_seconds.values())
+
+
+@contextlib.contextmanager
+def uncounted(ops):
+    """Launches inside the block (the eager steps the replays are held
+    against) are not the path's: the counts go back to what they were."""
+    saved = _counts(ops)
+    try:
+        yield
+    finally:
+        for op in ops.KERNELS:
+            with op._count_lock:
+                op.launches = saved[op.name]
+
+
+def eager_check(np, ep, rt, prompt, res, tag, *, max_len, n_tok):
+    """The served path's replays against the eager step on the same
+    params and inputs: the warm invoke's logits and the generated tokens,
+    bit for bit."""
+    import torch
+    from repro_torch.serving.engine import _to_numpy
+    params = rt.fr_state.entries[0].result      # the instance's own
+    dev = ep.device
+    toks = torch.as_tensor(prompt, device=dev)
+    with torch.no_grad():
+        logits = _to_numpy(ep._score_fn(dev)(params, toks))
+        model = ep.model_for(dev)
+        B, S = toks.shape
+        cache = model.init_cache(B, max_len)
+        step, cache = model.prefill(params, toks, max_len=max_len,
+                                    cache=cache)
+        tok = torch.argmax(step[:, -1:], -1).to(torch.int32)
+        tokens = [int(tok[0, 0])]
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for _ in range(n_tok - 1):
+            step, cache = model.decode_step(params, cache, tok, pos)
+            tok = torch.argmax(step[:, -1:], -1).to(torch.int32)
+            pos = pos + 1
+            tokens.append(int(tok[0, 0]))
+        del cache
+    diff = float(np.abs(logits - res["logits"]).max())
+    res["eager_logit_diff"] = diff
+    res["eager_tokens_equal"] = tokens == res["tokens"]
+    log(f"{tag} replay vs eager step: warm invoke logits max |diff| "
+        f"{diff:.3e} (bit for bit {diff == 0.0}), generated tokens equal "
+        f"{res['eager_tokens_equal']}")
+    check(np.array_equal(logits, res["logits"]),
+          f"{tag} replayed logits differ from the eager step's by {diff}")
+    check(res["eager_tokens_equal"],
+          f"{tag} replayed tokens {res['tokens']} != eager {tokens}")
 
 
 def check_launches(res, per_fwd, per_step, n_tok, tag):
@@ -1093,7 +1247,8 @@ def phase_main(torch, np, ops, tmp_root, engines):
 
     ops.reset_launches()                      # the main path's run starts
     bf = serve(np, ops, cfg, store, "qwen2", "bf16", prompt, engines,
-               max_len=MAX_LEN, n_tok=N_TOK)
+               max_len=MAX_LEN, n_tok=N_TOK,
+               trace_dir=ROOT / "build" / "profile" / "qwen2")
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_layers, "decode_attention": 0,
                         "rglru_scan": 0, **NO_BWD},
@@ -1104,7 +1259,7 @@ def phase_main(torch, np, ops, tmp_root, engines):
           f"a kernel was not launched on the main path: {out['launches']}")
     _log_served("main bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
-                                   "generate_ms")})
+                                   "generate_ms", "graphs", "profile")})
 
     # ---- bf16: kernel path vs reference path, teacher-forced ---------------
     toks = torch.as_tensor(prompt, device="cuda")
@@ -1117,8 +1272,6 @@ def phase_main(torch, np, ops, tmp_root, engines):
         f"{N_TOK} positions x {B} rows: max |logit diff| {diff:.4e}, "
         f"greedy agreement {agree}/{total}; decode step median "
         f"{k_ms:.2f} ms (reference path {r_ms:.2f} ms)")
-    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile" / "qwen2")
     del params, model
 
     # ---- float32 parity: kernel path vs force_reference --------------------
@@ -1190,7 +1343,8 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
 
     ops.reset_launches()                      # this path's run starts
     bf = serve(np, ops, cfg, store, "rgemma", "rgemma bf16", prompt, engines,
-               max_len=MAX_LEN, n_tok=N_TOK)
+               max_len=MAX_LEN, n_tok=N_TOK,
+               trace_dir=ROOT / "build" / "profile" / "rgemma")
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_attn, "decode_attention": 0,
                         "rglru_scan": n_rec, **NO_BWD},
@@ -1200,7 +1354,8 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
           f"a kernel was not launched on the rgemma path: {out['launches']}")
     _log_served("rgemma bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
-                                   "generate_ms", "cold_timing")})
+                                   "generate_ms", "cold_timing", "graphs",
+                                   "profile")})
 
     diff, agree, total, k_ms, r_ms = kernel_vs_reference(
         torch, ops, model, params, toks, MAX_LEN, N_TOK)
@@ -1211,8 +1366,6 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
         f"positions x {B} rows: max |logit diff| {diff:.4e}, greedy "
         f"agreement {agree}/{total}; decode step median {k_ms:.2f} ms "
         f"(reference path {r_ms:.2f} ms)")
-    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile" / "rgemma")
     out["long_prefill"] = profile_prefill(
         torch, np, ops, model, params, cfg, n_rec,
         ROOT / "build" / "profile" / "rgemma_long")
@@ -1319,31 +1472,29 @@ def profile_prefill(torch, np, ops, model, params, cfg, n_rec, trace_dir,
     return res
 
 
-def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
-    """Trace one prefill and ``steps`` decode steps with torch.profiler:
-    device-busy share of the wall time, kernels per step, and the
-    kernels that take the device time.  The Chrome trace and the host-op
-    table go to ``trace_dir``."""
+def profile_steps(torch, prefill, decode, toks, trace_dir, steps=4):
+    """Trace one prefill and ``steps`` decode steps of a served session
+    (its bound steps: replays of their graphs) with torch.profiler:
+    device-busy share of the host's wall time, device kernels per step,
+    and the kernels that take the device time.  The Chrome trace and the
+    host-op table go to ``trace_dir``.  The MoE stage ranges are host
+    markers a graph does not hold, so no stage split is taken here."""
     from torch.profiler import ProfilerActivity, profile, record_function
     B, S = toks.shape
 
     def work():
-        with torch.no_grad():
-            cache = model.init_cache(B, max_len)
-            logits, cache = model.prefill(params, toks, max_len=max_len,
-                                          cache=cache)
-            torch.cuda.synchronize()
-            t_pre = time.perf_counter()
-            with record_function("decode_steps"):
+        logits, _ = prefill(toks)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter()
+        with record_function("decode_steps"):
+            tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+            pos = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+            for _ in range(steps):
+                logits, _ = decode(tok, pos)
                 tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-                pos = torch.full((B,), S, dtype=torch.int32,
-                                 device=toks.device)
-                for _ in range(steps):
-                    logits, cache = model.decode_step(params, cache, tok, pos)
-                    tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
-                    pos = pos + 1
-                torch.cuda.synchronize()
-            return t_pre
+                pos = pos + 1
+            torch.cuda.synchronize()
+        return t_pre
 
     work()                                    # allocator and handles warm
     res = {}
@@ -1353,11 +1504,11 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
         t_pre = work()
         t1 = time.perf_counter()
     events = prof.events()
-    # device events, without the markers' own spans on the GPU timeline
-    # (the decode region's and the MoE stages' ranges)
+    # device events, without the decode region's own span on the GPU
+    # timeline
     kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name != "decode_steps" and not e.name.startswith("moe/")]
+            and e.name != "decode_steps"]
     out_dir = Path(trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out_dir / "decode_trace.json"))
@@ -1383,9 +1534,10 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
                decode_busy_ms_per_step=busy_dec / steps / 1e3,
                decode_kernels_per_step=len(dec) / steps,
                decode_idle_share=1 - busy_dec / wall_dec)
-    log("profile (bf16, batch %d, prompt %d): prefill wall %.2f ms, device "
-        "busy %.2f ms, %d device events; decode per step wall %.2f ms, "
-        "device busy %.3f ms, %.0f device events, device idle share %.3f"
+    log("profile, replayed (bf16, batch %d, prompt %d): prefill wall %.2f "
+        "ms, device busy %.2f ms, %d device events; decode per step wall "
+        "%.2f ms, device busy %.3f ms, %.0f device events, device idle "
+        "share on the host clock under the profiler %.3f"
         % (B, S, res["prefill_wall_ms"], res["prefill_busy_ms"],
            res["prefill_kernels"], res["decode_wall_ms_per_step"],
            res["decode_busy_ms_per_step"], res["decode_kernels_per_step"],
@@ -1398,55 +1550,12 @@ def profile_steps(torch, model, params, toks, max_len, trace_dir, steps=4):
                      name):
             log(f"profile decode port kernel: {us / steps:9.1f} us/step "
                 f"({us / busy_dec:.1%} of device busy)  {name[:70]}")
-    if any(e.name.startswith("moe/") for e in events):
-        res["moe"] = {
-            "prefill": moe_share(torch, events, pre, busy_pre, "prefill", 1),
-            "decode": moe_share(torch, events, dec, busy_dec, "decode per step",
-                                steps)}
     table = prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=15)
     (out_dir / "profile_table.txt").write_text(table)
     log("profile host ops by self CPU time (prefill + decode, profiler on):")
     for line in table.splitlines()[:19]:
         log(f"  {line[:150]}")
-    return res
-
-
-def moe_share(torch, events, kern, busy_us, label, per):
-    """The MoE layers' device time by stage: each device kernel that
-    starts inside a stage's range (``moe/routing``, ...) on the GPU
-    timeline counts for that stage."""
-    import bisect
-    spans = {st: sorted((e.time_range.start, e.time_range.end) for e in events
-                        if e.name == f"moe/{st}"
-                        and e.device_type == torch.autograd.DeviceType.CUDA)
-             for st in MOE_STAGES}
-    if not any(spans.values()):
-        log(f"profile MoE {label}: the profiler put no MoE range on the GPU "
-            f"timeline: MoE share not measured")
-        return {}
-    stage_us = {st: 0.0 for st in MOE_STAGES}
-    names = {st: {} for st in MOE_STAGES}
-    for st, sp in spans.items():
-        starts = [a for a, _ in sp]
-        for k in kern:
-            i = bisect.bisect_right(starts, k.time_range.start) - 1
-            if i >= 0 and k.time_range.start < sp[i][1]:
-                us = k.time_range.elapsed_us()
-                stage_us[st] += us
-                names[st][k.name] = names[st].get(k.name, 0.0) + us
-    total = sum(stage_us.values())
-    res = {"moe_device_ms": total / per / 1e3, "moe_share": total / busy_us,
-           "stages_ms": {st: us / per / 1e3 for st, us in stage_us.items()}}
-    log(f"profile MoE {label}: {res['moe_device_ms']:.3f} ms of device time, "
-        f"{res['moe_share']:.1%} of the device busy time; "
-        + ", ".join(f"{st} {us / per / 1e3:.3f} ms ({us / busy_us:.1%})"
-                    for st, us in stage_us.items()))
-    for st in MOE_STAGES:
-        top = sorted(names[st].items(), key=lambda kv: -kv[1])[:3]
-        if top:
-            log(f"profile MoE {label} {st} kernels: " + "; ".join(
-                f"{us / per:.1f} us {n[:60]}" for n, us in top))
     return res
 
 
@@ -1565,7 +1674,8 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
 
     ops.reset_launches()                      # this path's run starts
     bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
-               max_len=MAX_LEN, n_tok=N_TOK)
+               max_len=MAX_LEN, n_tok=N_TOK,
+               trace_dir=ROOT / "build" / "profile" / tag)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
                         "rglru_scan": 0, **NO_BWD},
@@ -1576,7 +1686,8 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
           f"a kernel was not launched on the {tag} path: {out['launches']}")
     _log_served(f"{tag} bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
-                                   "generate_ms", "cold_timing")})
+                                   "generate_ms", "cold_timing", "graphs",
+                                   "profile")})
 
     with moe.record_routing() as rec, torch.no_grad():
         x, aux = model.forward(params, toks)
@@ -1593,8 +1704,6 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
         torch, ops, moe, model, params, toks, MAX_LEN, N_TOK,
         f"{tag} bf16 kernel vs reference path", gate=False)
     out["decode_step_ms"] = out["bf16_teacher_forced"]["decode_step_ms"]
-    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile" / tag)
     return out, model, params, toks
 
 
@@ -1818,7 +1927,8 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
 
     ops.reset_launches()                      # this path's run starts
     bf = serve(np, ops, cfg, store, "xlstm", "xlstm bf16", prompt, engines,
-               max_len=MAX_LEN, n_tok=N_TOK)
+               max_len=MAX_LEN, n_tok=N_TOK,
+               trace_dir=ROOT / "build" / "profile" / "xlstm")
     out["launches"] = _counts(ops)            # ... and ends here
     lap("serve")
     none = {k: 0 for k in out["launches"]}
@@ -1827,18 +1937,16 @@ def phase_xlstm(torch, np, ops, tmp_root, engines):
           f"the xlstm path launched a port kernel: {out['launches']}")
     _log_served("xlstm bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
-                                   "generate_ms", "cold_timing")})
+                                   "generate_ms", "cold_timing", "graphs",
+                                   "profile")})
     logits_steps, _, step_ms = run_steps(torch, ops, model, params, toks,
                                          MAX_LEN, N_TOK, reference=False)
     check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
           "xlstm bf16 decode logits not finite")
     out["decode_step_ms"] = _median(step_ms)
-    log(f"xlstm bf16 decode step median {out['decode_step_ms']:.2f} ms "
+    log(f"xlstm bf16 eager decode step median {out['decode_step_ms']:.2f} ms "
         f"(batch {B}, {N_TOK - 1} steps)")
     lap("decode steps")
-    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile" / "xlstm")
-    lap("profile")
     with torch.no_grad():
         h = model._embed(params, toks)
     out["slstm_prefill"] = profile_slstm_prefill(
@@ -1986,7 +2094,8 @@ def serve_dense(torch, np, ops, full, cfg, tag, seed, store, engines):
     with _closing_new(torch, engines):
         ops.reset_launches()                  # this path's run starts
         bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
-                   max_len=MAX_LEN, n_tok=N_TOK)
+                   max_len=MAX_LEN, n_tok=N_TOK,
+                   trace_dir=ROOT / "build" / "profile" / tag)
         out["launches"] = _counts(ops)        # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
                         "rglru_scan": 0, **NO_BWD},
@@ -1998,7 +2107,7 @@ def serve_dense(torch, np, ops, full, cfg, tag, seed, store, engines):
     _log_served(f"{tag} bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
                                    "generate_ms", "cold_timing", "logits",
-                                   "tokens")})
+                                   "tokens", "graphs", "profile")})
     log(f"{tag} bf16 cold invoke: {out['bytes'] / 1e9:.3f} GB of weights at "
         f"{out['bytes'] / 1e9 / out['cold_timing']['weights']:.3f} GB/s "
         f"(the load and the copy to the card)")
@@ -2012,8 +2121,6 @@ def serve_dense(torch, np, ops, full, cfg, tag, seed, store, engines):
         f"positions x {B} rows: max |logit diff| {diff:.4e}, greedy "
         f"agreement {agree}/{total}; decode step median {k_ms:.2f} ms "
         f"(reference path {r_ms:.2f} ms)")
-    out["profile"] = profile_steps(torch, model, params, toks, MAX_LEN,
-                                   ROOT / "build" / "profile" / tag)
     del params, model
     torch.cuda.empty_cache()
     return out
@@ -3518,23 +3625,39 @@ def rollout_versions(torch, np, ops, cfg, tmp_root, engines):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        ep = eng.endpoints[ROLLOUT_NAME]
+        captures = _captures(ep)
         cases["5 v2 stale"] = c = rollout_invoke(
             np, ops, eng, rt, prompt, per_fwd,
-            "5 v2 published: the invoke refetches the weights inline",
-            forwards=1)
+            "5 v2 published: the invoke refetches the weights and binds "
+            "the step to them inline (a warm run and a capture)",
+            forwards=2)
         c["held_bytes"] = held
         c["peak_bytes"] = torch.cuda.max_memory_allocated()
-        check(c["inline"] == [base_inline[0] + 1] + base_inline[1:],
+        torch.cuda.synchronize()
+        c["after_bytes"] = torch.cuda.memory_allocated()
+        check(c["inline"] == [base_inline[0] + 1, base_inline[1],
+                              base_inline[2] + 1],
               f"v2 invoke inline {c['inline']} after {base_inline}")
+        check(_captures(ep) == captures + 1,
+              f"the v2 invoke made {_captures(ep) - captures} captures")
+        v_bytes = store.nbytes(ROLLOUT_NAME)
+        check(c["after_bytes"] - held < v_bytes / 2,
+              f"after the refetch the card holds {c['after_bytes']} bytes, "
+              f"{held} before: v1's params ({v_bytes} bytes) were not "
+              f"dropped with their graph")
         check(not np.array_equal(c["logits"], v1), "v2's logits are v1's")
         with _closing_new(torch, engines):
             want = rollout_fresh(np, cfg, params2, tmp_root, prompt, engines)
         check(np.array_equal(c["logits"], want),
               f"v2's refetched logits differ from a fresh v2 endpoint's (max "
               f"|diff| {np.abs(c['logits'] - want).max()})")
-        log(f"rollout v2: the refetch held {held / 1e9:.3f} GB before and "
+        log(f"rollout v2: the refetch held {held / 1e9:.3f} GB before, "
             f"peaked at {c['peak_bytes'] / 1e9:.3f} GB (v1 and v2 both on the "
-            f"card for a moment); logits bit for bit a fresh v2 endpoint's")
+            f"card for a moment) and held {c['after_bytes'] / 1e9:.3f} GB "
+            f"after (v1 and its graph dropped; a version is "
+            f"{v_bytes / 1e9:.3f} GB); logits bit for bit a fresh v2 "
+            f"endpoint's")
 
         # ---- v3: freshened before the invoke ----------------------------
         params3, out["train"][3] = rollout_train(torch, np, ops, cfg,
@@ -3543,11 +3666,16 @@ def rollout_versions(torch, np, ops, cfg, tmp_root, engines):
         out["publish_s"][3] = _publish(store, ROLLOUT_NAME, params3)
         base_inline = list(c["inline"])
         c0 = _counts(ops)
+        captures = _captures(ep)
         t0 = time.perf_counter()
         rt.freshen(blocking=True)
         fr_ms = _ms_since(t0)
-        check(_delta(c0, _counts(ops)) == _times(per_fwd, 0),
+        # the freshen reloads the weights and binds the step to them: one
+        # warm run, and the v3 capture
+        check(_delta(c0, _counts(ops)) == per_fwd,
               f"v3 freshen launches {_delta(c0, _counts(ops))}")
+        check(_captures(ep) == captures + 1,
+              f"the v3 freshen made {_captures(ep) - captures} captures")
         cases["6 v3 freshened"] = c = rollout_invoke(
             np, ops, eng, rt, prompt, per_fwd,
             f"6 v3 published, freshen-before ({fr_ms:.1f} ms): nothing "
@@ -3556,6 +3684,8 @@ def rollout_versions(torch, np, ops, cfg, tmp_root, engines):
         c["freshen_ms"] = fr_ms
         check(c["inline"] == base_inline,
               f"v3 invoke inline {c['inline']} after {base_inline}")
+        check(_captures(ep) == captures + 1 and "capture" not in c["timing"],
+              "the freshened v3 invoke captured inline")
         check(not np.array_equal(c["logits"],
                                  cases["5 v2 stale"]["logits"]),
               "v3's logits are v2's")
@@ -3673,6 +3803,205 @@ def phase_rollout(torch, np, ops, tmp_root, engines):
                       "chain": time.perf_counter() - t1}
     log("rollout seconds by part " + json.dumps(
         {k: round(v, 1) for k, v in out["seconds"].items()}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase graphs
+# arch and depth cut: every served path's family, one dense config cut
+GRAPH_PATHS = (("qwen2-0.5b", None), ("recurrentgemma-2b", None),
+               ("granite-moe-1b-a400m", None), ("xlstm-350m", None),
+               ("phi3-medium-14b", ((("attn",), 4),)))
+GRAPH_SHAPE = (4, 128, 256, 16)          # batch, prompt, cache, tokens
+GRAPH_REPEATS = 3                        # timed calls per figure (median)
+IDLE_STEPS = 8                           # decode steps per idle share
+
+
+def pool_bytes(torch, graph):
+    """Bytes of the segments in ``graph``'s private memory pool, or None
+    where the allocator's snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    pid = tuple(graph.pool())
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == pid)
+
+
+def _synced_ms(torch, fn):
+    """(median ms of GRAPH_REPEATS host-synced calls after one, last out)."""
+    out = fn()
+    ms = []
+    for _ in range(GRAPH_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(_ms_since(t0))
+    return _median(ms), out
+
+
+def greedy_session(torch, prefill, decode, toks, n_tok):
+    """Prefill, then n_tok - 1 greedy decode steps, each host-synced and
+    timed: (each position's float32 logits, row 0's tokens, step ms)."""
+    B, S = toks.shape
+    logits = prefill(toks)[0]
+    steps, ms = [logits.float()], []
+    tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+    tokens = [int(tok[0, 0])]
+    pos = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+    for _ in range(n_tok - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = decode(tok, pos)[0]
+        torch.cuda.synchronize()
+        ms.append(_ms_since(t0))
+        steps.append(logits.float())
+        tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        pos = pos + 1
+        tokens.append(int(tok[0, 0]))
+    return steps, tokens, ms, (tok, pos)
+
+
+def replay_idle(torch, decode, tok, pos, steps=IDLE_STEPS):
+    """A replayed decode step's device idle share on the device's own
+    clock (CUDA events), the step as generate runs it: copy-in, replay,
+    the argmax and the next position.  Busy is a step's device time with
+    the queue kept full (``steps`` steps issued back to back, no token
+    read); the period is one step's start to the next's when the host
+    reads each token before it issues the next step, as generate does.
+    Returns (1 - busy / period, busy ms, period ms)."""
+    def step(tok, pos):
+        logits = decode(tok, pos)[0]
+        return torch.argmax(logits[:, -1:], -1).to(torch.int32), pos + 1
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+    tok, pos = step(tok, pos)
+    torch.cuda.synchronize()
+    first, last = event(), event()
+    first.record()
+    t, p = tok, pos
+    for _ in range(steps):
+        t, p = step(t, p)
+    last.record()
+    last.synchronize()
+    busy = first.elapsed_time(last) / steps
+    marks = [event() for _ in range(steps + 1)]
+    for i in range(steps):
+        marks[i].record()
+        tok, pos = step(tok, pos)
+        int(tok[0, 0])
+    marks[steps].record()
+    marks[steps].synchronize()
+    period = marks[0].elapsed_time(marks[steps]) / steps
+    return 1 - busy / period, busy, period
+
+
+def graph_path(torch, np, ops, arch, segments):
+    """One config on the card, bf16, random weights from seed 0: the score
+    step and a greedy session, each eager (the step function called
+    directly) beside its replay, every logit bit for bit; capture seconds
+    and pool bytes of each graph; the replayed decode step's idle share
+    from CUDA events (``replay_idle``); the launches each graph
+    recorded."""
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Executor, ModelEndpoint
+    from repro_torch.serving.engine import _to_numpy
+    full = get_config(arch)
+    cfg = _cut(full, segments)
+    B, S, MAX_LEN, N_TOK = GRAPH_SHAPE
+    ep = ModelEndpoint(arch, cfg, None, Executor(), batch_size=B, seq_len=S,
+                       device="cuda")
+    dev = ep.device
+    model = ep.model_for(dev)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(B, S), dtype=np.int32), device=dev)
+    out: dict = {"layers": cfg.n_layers}
+    cut = "uncut" if segments is None else \
+        f"cut from {full.n_layers} to {cfg.n_layers} layers"
+    log(f"graphs: {arch} ({cut}), bf16, batch {B}, prompt {S}, cache "
+        f"{MAX_LEN}, {N_TOK} tokens")
+
+    # ---- the score step: the invoke's execute part -------------------------
+    score = ep._score_fn(dev)
+    c0 = _counts(ops)
+    eager_ms, eager = _synced_ms(torch, lambda: _to_numpy(
+        torch.no_grad()(score)(params, toks)))
+    step = ep.executor.warmup(ep._compile(), params)
+    replay_ms, replayed = _synced_ms(torch, lambda: _to_numpy(step(toks)))
+    out["score"] = dict(eager_ms=eager_ms, replay_ms=replay_ms,
+                        warm_s=step.warm_seconds,
+                        capture_s=step.capture_seconds,
+                        pool_bytes=pool_bytes(torch, step.graph),
+                        launches=step.launches)
+    check(np.array_equal(eager, replayed),
+          f"graphs {arch}: replayed score logits differ from the eager "
+          f"step's by {np.abs(eager - replayed).max()}")
+
+    # ---- a greedy session: prefill and decode ------------------------------
+    c_pre, c_dec = ep._compile_decode(MAX_LEN)
+    cache = ep._prealloc_session(MAX_LEN)
+    pre = ep.executor.warmup(c_pre, params, cache)
+    dec = ep.executor.warmup(c_dec, params, cache)
+    r_logits, r_tokens, r_ms, (tok, pos) = greedy_session(
+        torch, pre, dec, toks, N_TOK)
+    r_idle = replay_idle(torch, dec, tok, pos)
+    fresh = model.init_cache(B, MAX_LEN)
+    prefill, decode = ep._decode_fns(MAX_LEN)
+    with torch.no_grad():
+        e_logits, e_tokens, e_ms, _ = greedy_session(
+            torch, lambda t: prefill(params, fresh, t),
+            lambda t, p: decode(params, fresh, t, p), toks, N_TOK)
+    diff = max(float((a - b).abs().max()) for a, b in zip(r_logits, e_logits))
+    check(diff == 0.0 and r_tokens == e_tokens,
+          f"graphs {arch}: replayed session differs from the eager one: "
+          f"max |logit diff| {diff}, tokens {r_tokens} vs {e_tokens}")
+    for name, g in (("prefill", pre), ("decode", dec)):
+        out[name] = dict(warm_s=g.warm_seconds, capture_s=g.capture_seconds,
+                         pool_bytes=pool_bytes(torch, g.graph),
+                         launches=g.launches)
+    out["decode"].update(
+        eager_ms=_median(e_ms), replay_ms=_median(r_ms),
+        replay_idle=r_idle[0], replay_busy_ms=r_idle[1],
+        replay_period_ms=r_idle[2], threads=threading.active_count())
+    out["launches"] = _delta(c0, _counts(ops))
+    d = out["decode"]
+    log(f"graphs {arch}: score step eager {eager_ms:.3f} ms, replay "
+        f"{replay_ms:.3f} ms (host-synced, logits to the host), bit for bit; "
+        f"decode step eager {d['eager_ms']:.3f} ms, replay "
+        f"{d['replay_ms']:.3f} ms; replayed decode device idle share "
+        f"{r_idle[0]:.4f} from CUDA events (busy {r_idle[1]:.4f} ms of a "
+        f"{r_idle[2]:.4f} ms step, {d['threads']} threads alive); session "
+        f"logits and tokens bit for bit")
+    for name in ("score", "prefill", "decode"):
+        g = out[name]
+        log(f"graphs {arch} {name}: warm run {g['warm_s']:.3f} s, capture "
+            f"and instantiate {g['capture_s']:.3f} s, pool {_mib(g)}, "
+            f"launches per replay {g['launches']}")
+    kinds = {kind for pat, _ in cfg.segments for kind in pat}
+    if kinds & {"attn", "attn_local", "attn_moe", "mla", "mla_moe"}:
+        check(out["prefill"]["launches"].get("flash_attention", 0) > 0
+              and out["decode"]["launches"].get("decode_attention", 0) > 0,
+              f"graphs {arch}: K1/K2 not inside the graphs: {out}")
+    if "rglru" in kinds:
+        check(out["prefill"]["launches"].get("rglru_scan", 0) > 0,
+              f"graphs {arch}: K3 not inside the prefill graph")
+    del step, pre, dec, cache, fresh, params, model
+    return out
+
+
+def phase_graphs(torch, np, ops, tmp_root, engines):
+    """The served steps as CUDA graphs beside the eager steps, per
+    family."""
+    import gc
+    out = {}
+    for arch, segments in GRAPH_PATHS:
+        out[arch] = graph_path(torch, np, ops, arch, segments)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4065,6 +4394,8 @@ def main(argv=None) -> int:
         results["train"] = timed("train", phase_train, torch, np, ops, ref)
     if "rollout" in phases:
         served("rollout", phase_rollout)
+    if "graphs" in phases:
+        served("graphs", phase_graphs)
     if "times" in phases:
         results["times"] = timed("times", phase_times, torch, ops, ref)
     if not set(PHASES) <= set(phases):
@@ -4072,30 +4403,13 @@ def main(argv=None) -> int:
         return 0
 
     for key, tag in PATHS:
-        r = results[key]
-        moe_share = {part: r["profile"]["moe"][part].get("moe_share")
-                     for part in ("prefill", "decode")} \
-            if "moe" in r["profile"] else None
-        log(f"e2e {tag}: cold invoke {r['cold_ms']:.3f} ms, freshened invoke "
-            f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
-            f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
-            f"device events per decode step "
-            f"{r['profile'].get('decode_kernels_per_step', 'not measured')}, "
-            f"decode device idle share under the profiler "
-            f"{r['profile'].get('decode_idle_share', 'not measured')}"
-            + (f", MoE share of device time {moe_share}" if moe_share else ""))
+        log(f"e2e {tag}: {_served_line(results[key])}")
     dense = results["dense"]
     for arch, tag, _, _, _ in DENSE:
         r = dense["models"][tag]
         log(f"e2e {arch} ({r['layers']} layers, {r['bytes'] / 1e9:.3f} GB): "
-            f"cold invoke {r['cold_ms']:.3f} ms (weights "
-            f"{r['cold_timing']['weights'] * 1e3:.3f} ms), freshened invoke "
-            f"{r['freshened_ms']:.3f} ms, warm invoke {r['warm_ms']:.3f} ms, "
-            f"decode step (per token, batch 4) {r['decode_step_ms']:.3f} ms, "
-            f"device events per decode step "
-            f"{r['profile'].get('decode_kernels_per_step', 'not measured')}, "
-            f"decode device idle share under the profiler "
-            f"{r['profile'].get('decode_idle_share', 'not measured')}")
+            f"{_served_line(r)} (weights of the cold invoke "
+            f"{r['cold_timing']['weights'] * 1e3:.3f} ms)")
     ch = dense["chain"]
     log(f"e2e dense chain ({' -> '.join(ch['stages'])}): "
         + ", ".join(f"{t} {st['invoke_ms']:.3f} ms"
@@ -4137,6 +4451,19 @@ def main(argv=None) -> int:
             f"{m['latency']['p95'] * 1e3:.3f} p99 "
             f"{m['latency']['p99'] * 1e3:.3f} ms, inline by stage "
             f"{[p['inline'] for p in m['pools'].values()]}")
+    for arch, g in results["graphs"].items():
+        d = g["decode"]
+        log(f"e2e {arch} ({g['layers']} layers) eager step vs CUDA graph: "
+            f"score step {g['score']['eager_ms']:.3f} / "
+            f"{g['score']['replay_ms']:.3f} ms, decode step "
+            f"{d['eager_ms']:.3f} / {d['replay_ms']:.3f} ms, replayed decode "
+            f"idle share {d['replay_idle']}; capture "
+            f"s score {g['score']['capture_s']:.3f}, prefill "
+            f"{g['prefill']['capture_s']:.3f}, decode {d['capture_s']:.3f}; "
+            f"pool MiB " + ", ".join(
+                f"{k} {g[k]['pool_bytes'] / 2**20:.1f}"
+                if g[k]["pool_bytes"] is not None else f"{k} not measured"
+                for k in ("score", "prefill", "decode")))
     tr = results["train"]
     qtr, rtr = (tr["full"][a] for a in ("qwen2-0.5b", "recurrentgemma-2b"))
     for arch, t, shares in (("qwen2-0.5b", qtr, ("k1b", "k1")),

@@ -21,9 +21,13 @@ no backward (the reference never differentiates a decode step): on CUDA
 tensors that require grad it raises rather than hand back a tensor cut
 from the graph.
 
-Each op counts its kernel launches in a plain ``launches`` int, bumped
-where the kernel launches and nowhere else, so a run can show that the
-main path went through the kernels.
+Each op counts its kernel launches in a plain ``launches`` int: the
+kernels that ran on the device.  An eager call adds one where the
+kernel launches and nowhere else, so a run can show that the main path
+went through the kernels.  A CUDA-graph capture runs nothing: inside
+``recording_launches()`` the capturing thread's launches go to the
+graph's tally instead, and each replay adds that tally
+(``add_launches``).
 
 The kernels are built at first use: one ``nvcc`` per source in
 ``csrc/``, all started together, each into a shared library with a
@@ -188,6 +192,24 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
                      f"tensors and the plain versions CPU tensors")
 
 
+# the tally of the graph this thread is capturing, if any
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside this block the calling thread's launches are tallied into
+    the yielded ``{op name: launches}`` dict and not counted: a graph
+    being captured records its launches, and only its replays run
+    them.  Other threads count as before."""
+    outer = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
 class KernelOp:
     """One kernel: dispatch plus its launch count."""
 
@@ -198,6 +220,10 @@ class KernelOp:
         self._count_lock = threading.Lock()
 
     def _counted(self):
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+            return
         with self._count_lock:
             self.launches += 1
 
@@ -395,3 +421,12 @@ def reset_launches() -> None:
     for op in KERNELS:
         with op._count_lock:
             op.launches = 0
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count a graph replay: ``tally`` is what its capture recorded."""
+    for op in KERNELS:
+        n = tally.get(op.name, 0)
+        if n:
+            with op._count_lock:
+                op.launches += n

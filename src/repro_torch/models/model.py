@@ -12,6 +12,7 @@ each chunk's logits in the backward instead of keeping them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -25,6 +26,14 @@ from repro_torch.models.layers import (ParamFactory, dense_init,
                                       init_rmsnorm, rmsnorm_apply)
 from repro_torch.sharding import boundary
 from repro_torch.specs import TensorSpec, tensors_like_specs
+
+
+@functools.lru_cache(maxsize=None)
+def _host_constant(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as the reference's constant is, but
+    a host number: a step captured as a CUDA graph may not copy a new
+    tensor onto the card, and the step's first run fills this cache."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def _softcap(x, cap):
@@ -87,8 +96,7 @@ class Model:
         else:
             x = F.embedding(tokens, params["embed"])
         if cfg.scale_embedding:
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
+            x = x * _host_constant(cfg.d_model ** 0.5, x.dtype)
         if frontend_embeds is not None:
             x = torch.where(frontend_mask[..., None],
                             frontend_embeds.to(x.dtype), x)

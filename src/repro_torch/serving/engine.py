@@ -6,12 +6,17 @@ A ``ModelEndpoint`` is the paper's λ (Algorithm 1):
     procedure λ(tokens):
         params   := FrFetch(0, WeightStore.load(NAME))        # DataGet
         compiled := FrFetch(1, Executor.compile(score_fn))    # kernel build
-        FrWarm(2, compiled.warmup())                          # CWND warming
+        FrWarm(2, Executor.warmup(compiled, params))          # capture
         [data   := FrFetch(3, Datastore.get(CONST_KEY))]      # prefetch
-        return compiled(params, tokens)
+        return compiled.bind(params)(tokens)                  # replay
 
 Weights and the "executable" are separate plan entries, so a new weight
-version swaps in without rebuilding anything.  An endpoint keeps the
+version swaps in without rebuilding anything.  On the card the warm-up
+entry runs the score step once and captures it as a CUDA graph bound to
+the instance's params (``serving/executor.py``); it follows the weights'
+version, so a freshen after a publish captures again and the invoke
+replays.  A generation endpoint's session entries capture its prefill
+and decode steps against the preallocated decode cache the same way.  An endpoint keeps the
 device it was asked for (``device="cuda"`` by default) and resolves it
 only when an instance builds its plan, in the instance's own thread:
 a shard pinned to a card runs the plan under that card's
@@ -36,7 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.freshen import Action, FreshenPlan, PlanEntry
+from repro_torch.core.freshen import (Action, FreshenPlan, FrState,
+                                      PlanEntry)
 from repro_torch.core.runtime import FunctionSpec, RunContext, Runtime
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import Model, make_model
@@ -64,6 +70,33 @@ class WarmBudget:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host copy as float32 (numpy has no bfloat16); waits for the device."""
     return t.detach().float().cpu().numpy()
+
+
+def _entry_index(runtime: Runtime, name: str) -> int:
+    return [e.name for e in runtime.fr_state.plan.entries].index(name)
+
+
+class _ScoreStep:
+    """The warm-up entry's value: the score step bound to the instance's
+    params.  The warm-up binds it ahead of the invoke; where the warm
+    budget held the warm-up back, the first invoke binds it and leaves it
+    here.  Either way the entry keeps it until a new weight version redoes
+    the entry."""
+    __slots__ = ("step",)
+
+    def __init__(self, step=None):
+        self.step = step
+
+
+def _fetched(runtime: Runtime, idx: int):
+    """Plan entry ``idx``'s value for a later entry that builds on it: the
+    value freshen or the body already fetched (not counted as a hit), or
+    fetched now (waiting for one in flight) as the body would."""
+    e = runtime.fr_state.entries[idx]
+    with e.cond:
+        if e.state is FrState.FINISHED:
+            return e.result
+    return runtime.fr_state.fr_fetch(idx)
 
 
 class ModelEndpoint:
@@ -156,11 +189,13 @@ class ModelEndpoint:
         # template.  The entries resolve it again where they run, which a
         # pinned shard wraps in its torch.cuda.device.
         self.model_for(self.device)
+        version = self._weights_version
         entries = [
             PlanEntry("weights", Action.FETCH, self._load_weights,
-                      version_fn=lambda: self.store.version(self.name)),
+                      version_fn=version),
             PlanEntry("compiled", Action.FETCH, self._compile),
-            PlanEntry("warmup", Action.WARM, self._warmup),
+            PlanEntry("warmup", Action.WARM,
+                      lambda: self._warmup(runtime), version_fn=version),
         ]
         if self.datastore is not None and self.prefetch_key is not None:
             entries.append(PlanEntry(
@@ -170,6 +205,9 @@ class ModelEndpoint:
                 version_fn=lambda: self.datastore.version(self.prefetch_key)))
         return FreshenPlan(entries)
 
+    def _weights_version(self):
+        return self.store.version(self.name)
+
     def _load_weights(self):
         params, real, modeled = self.store.load(self.name, device=self.device)
         return params
@@ -178,27 +216,32 @@ class ModelEndpoint:
         dev = self.device
         compiled, dt = self.executor.compile(
             f"{self.name}/score", self._score_fn(dev), self._specs(),
-            device=dev)
+            device=dev, n_bound=1)
         return compiled
 
-    def _warmup(self):
+    def _warmup(self, runtime: Runtime) -> _ScoreStep:
+        """Bind the score step to the instance's params (on the card: run
+        it once and capture it), unless the warm budget holds it back; the
+        entry keeps the bound step, so its graph lives until the entry is
+        redone for a new version."""
         key = (self.name, self.batch_size, self.seq_len)
         if not self.warm_budget.allows(key):
-            return 0.0
+            return _ScoreStep()
         compiled = self.executor.get(f"{self.name}/score", self._specs(),
                                      device=self.device)
         if compiled is None:
             compiled = self._compile()
-        return self.executor.warmup(compiled, self._specs(),
-                                    device=self.device)
+        return _ScoreStep(self.executor.warmup(compiled,
+                                               _fetched(runtime, 0)))
 
     # ------------------------------------------------------------------
     # Decode sessions: the KV cache is a freshen-preallocatable resource
     # (the paper's buffer/CWND-warming analogue for serving state).
     def _decode_fns(self, max_len: int):
+        """The session's steps, bound arguments (params, cache) first."""
         model = self.model_for(self.device)
 
-        def prefill(params, tokens, cache):
+        def prefill(params, cache, tokens):
             return model.prefill(params, tokens, max_len=max_len, cache=cache)
 
         def decode(params, cache, token, pos):
@@ -212,13 +255,13 @@ class ModelEndpoint:
         prefill, decode = self._decode_fns(max_len)
         c_pre, _ = self.executor.compile(
             f"{self.name}/prefill{max_len}", prefill,
-            (params_spec, self._tokens_spec(self.seq_len), cache_spec),
-            device=dev)
+            (params_spec, cache_spec, self._tokens_spec(self.seq_len)),
+            device=dev, n_bound=2)
         c_dec, _ = self.executor.compile(
             f"{self.name}/decode{max_len}", decode,
             (params_spec, cache_spec, self._tokens_spec(1),
              TensorSpec((self.batch_size,), torch.int32)),
-            device=dev)
+            device=dev, n_bound=2)
         return c_pre, c_dec
 
     def _prealloc_session(self, max_len: int):
@@ -226,36 +269,57 @@ class ModelEndpoint:
         dev = self.device
         cache = self.model_for(dev).init_cache(self.batch_size, max_len)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            torch.cuda.current_stream(dev).synchronize()
         return cache
 
-    def session_plan_entries(self, max_len: int):
-        """Extra freshen resources for generation endpoints."""
+    def _capture_session(self, runtime: Runtime, offset: int):
+        """Bind prefill and decode to the instance's params and its
+        session cache (on the card: capture both).  The capture's warm
+        runs write into the cache; every session's prefill seeds all a
+        decode step reads again."""
+        c_pre, c_dec = _fetched(runtime, offset)
+        bound = (_fetched(runtime, 0), _fetched(runtime, offset + 1))
+        return (self.executor.warmup(c_pre, *bound),
+                self.executor.warmup(c_dec, *bound))
+
+    def session_plan_entries(self, max_len: int, runtime: Runtime):
+        """Extra freshen resources for generation endpoints, to end the
+        plan of the instance ``runtime``: the session steps, the
+        preallocated cache, and the steps captured against both."""
         return [
             PlanEntry("decode_executables", Action.FETCH,
                       lambda: self._compile_decode(max_len)),
             PlanEntry("session_cache", Action.FETCH,
                       lambda: self._prealloc_session(max_len)),
+            PlanEntry("session_graphs", Action.WARM,
+                      lambda: self._capture_session(
+                          runtime, _entry_index(runtime,
+                                                "decode_executables")),
+                      version_fn=self._weights_version),
         ]
 
     def generate(self, ctx: RunContext, tokens, n_steps: int, max_len: int,
                  plan_offset: int):
         """Greedy autoregressive generation using the freshened
         executables and cache; returns row 0's tokens.  ``plan_offset`` =
-        fr_state index of 'decode_executables'."""
-        params = ctx.fr_fetch(0)
-        c_pre, c_dec = ctx.fr_fetch(plan_offset)
+        fr_state index of 'decode_executables' (``session_plan_entries``)."""
+        ctx.fr_fetch(0)
+        ctx.fr_fetch(plan_offset)
         # the preallocated session cache: prefill seeds it in place and
         # every decode step writes its token's K/V into it in place
-        cache = ctx.fr_fetch(plan_offset + 1)
+        ctx.fr_fetch(plan_offset + 1)
+        # the steps bound to the params and that cache
+        ctx.fr_warm(plan_offset + 2)
+        prefill, decode = _fetched(ctx.runtime, plan_offset + 2)
         toks = self._tokens(tokens)
-        logits, cache = c_pre(params, toks, cache)
+        logits, _ = prefill(toks)
         B, S = toks.shape
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         out = [int(tok[0, 0])]
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         for _ in range(n_steps - 1):
-            logits, cache = c_dec(params, cache, tok, pos)
+            # copied into the decode graph's static token and pos
+            logits, _ = decode(tok, pos)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
             pos = pos + 1
             out.append(int(tok[0, 0]))
@@ -273,16 +337,27 @@ class ModelEndpoint:
         # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
         t_c = time.monotonic()
         ctx.fr_warm(2)                            # FrWarm(2, warmup)
+        held = _fetched(ctx.runtime, 2)
         # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
         t_u = time.monotonic()
+        # the step the warm-up bound to these params; bound here only if
+        # the warm budget held the warm-up back (timed on its own, never
+        # as execute), and then kept by the entry for the next invoke
+        step, captured = compiled.bind(params)
+        if isinstance(held, _ScoreStep):     # an inferred plan may hold none
+            held.step = step
+        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
+        t_x = time.monotonic() if captured else t_u
         extra = ctx.fr_fetch(3) if len(ctx.runtime.fr_state.plan) > 3 else None
-        logits = _to_numpy(compiled(params, tokens))   # waits for the device
+        logits = _to_numpy(step(tokens))          # waits for the device
         # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
         t1 = time.monotonic()
         self.warm_budget.observe((self.name, self.batch_size, self.seq_len))
         timing = {"total": t1 - t0, "weights": t_w - t0,
                   "compile": t_c - t_w, "warmup": t_u - t_c,
-                  "execute": t1 - t_u}
+                  "execute": t1 - t_x}
+        if captured:
+            timing["capture"] = t_x - t_u
         self.timings.append(timing)
         return {"logits": logits, "timing": timing, "extra": extra}
 

@@ -66,7 +66,9 @@ class WeightStore:
         t0 = time.monotonic()
         params = load_pytree(self._path(name), dev)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            # the copies ran on this thread's stream; a device-wide wait
+            # would also wait on other threads' work
+            torch.cuda.current_stream(dev).synchronize()
         real = time.monotonic() - t0
         nbytes = os.path.getsize(self._path(name))
         conn = conn or Connection(self.tier)

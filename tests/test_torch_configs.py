@@ -195,7 +195,9 @@ def test_nemotron_endpoint_returns_the_jax_endpoints_tokens(stores):
     def gen_runtime(ep, spec_cls, rt_cls, name):
         def plan_factory(rt):
             base = ep.build_plan(rt)
-            base.entries.extend(ep.session_plan_entries(MAX_LEN))
+            # the port's session entries end the instance's own plan
+            mine = (rt,) if isinstance(ep, ModelEndpoint) else ()
+            base.entries.extend(ep.session_plan_entries(MAX_LEN, *mine))
             return base
 
         def code(ctx, args):

@@ -12,7 +12,8 @@ and a trained weight version rolled out to a served endpoint.
   reference's lines.
 * The rollout: a version trained from v1 and published into the served
   endpoint's own store is refetched inline by the next invoke (one more
-  inline on the weights entry, nothing else), whose logits are a fresh
+  inline on the weights entry and on the warm-up, which binds the step
+  to each version's params, nothing else), whose logits are a fresh
   endpoint's on that version bit for bit; after a further version and a
   blocking freshen the invoke runs with nothing inline.
 * ``WeightStore.publish`` bumps the version only after the file is in
@@ -206,7 +207,7 @@ def test_rollout_on_cpu(small, tmp_path):
                                 opt_cfg=opt)
         assert store.publish("m", tr2.params) == 2
         v2 = eng.invoke("m", toks, freshen_successors=False)["logits"]
-        assert _inline(rt) == [1, 0, 0]          # the weights, refetched
+        assert _inline(rt) == [1, 0, 1]          # the weights, refetched
         assert not np.array_equal(v1, v2)
         assert np.array_equal(v2, _fresh_logits(cfg, tr2.params,
                                                  tmp_path / "only-v2", toks))
@@ -216,9 +217,9 @@ def test_rollout_on_cpu(small, tmp_path):
         assert store.publish("m", tr3.params) == 3
         freshened = rt.fr_state.stats()["freshened"]
         rt.freshen(blocking=True)
-        assert rt.fr_state.stats()["freshened"] == freshened + 1
+        assert rt.fr_state.stats()["freshened"] == freshened + 2
         v3 = eng.invoke("m", toks, freshen_successors=False)["logits"]
-        assert _inline(rt) == [1, 0, 0]          # nothing inline
+        assert _inline(rt) == [1, 0, 1]          # nothing inline
         assert not np.array_equal(v2, v3)
         assert np.array_equal(v3, _fresh_logits(cfg, tr3.params,
                                                  tmp_path / "only-v3", toks))
@@ -260,7 +261,7 @@ def test_publish_bumps_the_version_after_the_file(small, tmp_path,
         publisher.join(60)
         assert not publisher.is_alive() and store.version("m") == 2
         got = eng.invoke("m", toks, freshen_successors=False)["logits"]
-        assert _inline(rt) == [1, 0, 0]
+        assert _inline(rt) == [1, 0, 1]
         assert rt.fr_state.entries[0].version == 2
     finally:
         release.set()

@@ -396,7 +396,7 @@ def _gen_runtime(cfg, store, S, n_steps):
 
     def plan_factory(rt):
         base = ep.build_plan(rt)
-        base.entries.extend(ep.session_plan_entries(MAX_LEN))
+        base.entries.extend(ep.session_plan_entries(MAX_LEN, rt))
         return base
 
     def code(ctx, args):

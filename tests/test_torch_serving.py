@@ -83,8 +83,9 @@ def test_executor_compile_cache():
     c2, dt2 = ex.compile("f", f, specs, device="cpu")
     assert dt1 > 0 and dt2 == 0.0 and c1 is c2
     assert ex.hit_count == 1 and ex.compile_count == 1
-    torch.testing.assert_close(c1(torch.ones(4)), torch.full((4,), 2.0))
-    assert ex.warmup(c1, specs) >= 0.0
+    torch.testing.assert_close(c1.bind()[0](torch.ones(4)),
+                               torch.full((4,), 2.0))
+    assert ex.warmup(c1).warm_seconds >= 0.0
     assert ex.get("f", specs, device="cpu") is c1
 
 
@@ -153,12 +154,12 @@ def test_warm_budget_gating(setup):
     ep = _ep(cfg, store, warm_budget=WarmBudget(min_repetitions=2))
     eng = ServingEngine()
     try:
-        eng.deploy(ep)
+        rt = eng.deploy(ep)
         toks = np.zeros((2, SEQ), np.int32)
-        assert ep._warmup() == 0.0
+        assert ep._warmup(rt).step is None
         eng.invoke("tiny", toks, freshen_successors=False)
         eng.invoke("tiny", toks, freshen_successors=False)
-        assert ep._warmup() > 0.0
+        assert ep._warmup(rt).step.warm_seconds > 0.0
     finally:
         eng.close()
 
@@ -302,7 +303,7 @@ def _gen_runtime(cfg, store, n_steps=N_STEPS):
 
     def plan_factory(rt):
         base = ep.build_plan(rt)
-        base.entries.extend(ep.session_plan_entries(MAX_LEN))
+        base.entries.extend(ep.session_plan_entries(MAX_LEN, rt))
         return base
 
     def code(ctx, args):
@@ -397,7 +398,7 @@ def test_second_session_on_a_reused_cache_matches_a_fresh_runtime(
 
         def plan_factory(rt):
             base = ep.build_plan(rt)
-            base.entries.extend(ep.session_plan_entries(MAX_LEN))
+            base.entries.extend(ep.session_plan_entries(MAX_LEN, rt))
             return base
 
         def code(ctx, args):
