@@ -48,7 +48,7 @@ _SKIP_MARKER = os.sep + os.path.join("repro_torch", "analysis", "")
 
 _ASSIGN_RE = re.compile(r"(?:self\.)?([A-Za-z_]\w*)\s*[:=]")
 
-_TELEMETRY_FILES = frozenset({"tracer.py", "metrics.py"})
+_TELEMETRY_FILES = frozenset({"tracer.py", "metrics.py", "recorder.py"})
 
 
 class LockOrderError(AssertionError):

@@ -149,9 +149,16 @@ def save_pytree(path: str, params, metadata: Optional[dict] = None) -> None:
             os.unlink(tmp)
 
 
-def load_pytree(path: str, device: DeviceLike = "cuda") -> Any:
-    """Load a checkpoint written by either package onto ``device``."""
+def read_pytree(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+    """A checkpoint's leaves read into host arrays: ``(flat, dtype_map)``,
+    as :func:`params_from_numpy` takes them."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
         flat = {k: z[k] for k in z.files if k != "__meta__"}
-    return params_from_numpy(flat, device, meta.get("dtype_map", {}))
+    return flat, meta.get("dtype_map", {})
+
+
+def load_pytree(path: str, device: DeviceLike = "cuda") -> Any:
+    """Load a checkpoint written by either package onto ``device``."""
+    flat, dtype_map = read_pytree(path)
+    return params_from_numpy(flat, device, dtype_map)

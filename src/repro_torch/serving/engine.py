@@ -50,6 +50,8 @@ from repro_torch.serving.batching import EndpointBatcher, pad_batch
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.weights import WeightStore
 from repro_torch.specs import TensorSpec
+from repro_torch.telemetry import NULL_SPAN, current_span
+from repro_torch.telemetry import recorder
 
 
 @dataclass
@@ -109,7 +111,8 @@ class ModelEndpoint:
                  prefetch_ttl: Optional[float] = None,
                  warm_budget: Optional[WarmBudget] = None,
                  device: DeviceLike = "cuda",
-                 spec_ref: Optional[str] = None):
+                 spec_ref: Optional[str] = None,
+                 tracer=None):
         self.name = name
         self.cfg = cfg
         # the device as asked for: resolving it touches CUDA, so it is
@@ -137,7 +140,15 @@ class ModelEndpoint:
         # import to rebuild this endpoint's FunctionSpec (endpoint state
         # does not pickle); None keeps the endpoint thread-backend-only
         self.spec_ref = spec_ref
-        self.timings: List[dict] = []
+        # None: the tracer of the engine that deploys it, else the
+        # process tracer (telemetry/recorder.py)
+        self._tracer = tracer
+
+    @property
+    def tracer(self):
+        """Where the endpoint's work spans and decode records go."""
+        return (self._tracer if self._tracer is not None
+                else recorder.process_tracer())
 
     @property
     def device(self) -> torch.device:
@@ -190,12 +201,17 @@ class ModelEndpoint:
         # pinned shard wraps in its torch.cuda.device.
         self.model_for(self.device)
         version = self._weights_version
+        traced = self._traced
         entries = [
-            PlanEntry("weights", Action.FETCH, self._load_weights,
+            PlanEntry("weights", Action.FETCH,
+                      traced("weights.load", runtime, self._load_weights),
                       version_fn=version),
-            PlanEntry("compiled", Action.FETCH, self._compile),
+            PlanEntry("compiled", Action.FETCH,
+                      traced("compile", runtime, self._compile)),
             PlanEntry("warmup", Action.WARM,
-                      lambda: self._warmup(runtime), version_fn=version),
+                      traced("warmup", runtime,
+                             lambda: self._warmup(runtime)),
+                      version_fn=version),
         ]
         if self.datastore is not None and self.prefetch_key is not None:
             entries.append(PlanEntry(
@@ -204,6 +220,18 @@ class ModelEndpoint:
                 ttl=self.prefetch_ttl,
                 version_fn=lambda: self.datastore.version(self.prefetch_key)))
         return FreshenPlan(entries)
+
+    def _traced(self, name: str, runtime: Runtime, thunk):
+        """``thunk`` recording one work span ``name`` wherever it runs: on
+        the invoke's thread (inline) or on a freshen thread."""
+        def run():
+            rec = recorder.recorder_of(self.tracer)
+            if rec is None:
+                return thunk()
+            with rec.work(name, fn=self.name,
+                          instance=rec.instance_key(runtime)):
+                return thunk()
+        return run
 
     def _weights_version(self):
         return self.store.version(self.name)
@@ -286,15 +314,19 @@ class ModelEndpoint:
         """Extra freshen resources for generation endpoints, to end the
         plan of the instance ``runtime``: the session steps, the
         preallocated cache, and the steps captured against both."""
+        traced = self._traced
         return [
             PlanEntry("decode_executables", Action.FETCH,
-                      lambda: self._compile_decode(max_len)),
+                      traced("decode_executables", runtime,
+                             lambda: self._compile_decode(max_len))),
             PlanEntry("session_cache", Action.FETCH,
-                      lambda: self._prealloc_session(max_len)),
+                      traced("session_cache", runtime,
+                             lambda: self._prealloc_session(max_len))),
             PlanEntry("session_graphs", Action.WARM,
-                      lambda: self._capture_session(
-                          runtime, _entry_index(runtime,
-                                                "decode_executables")),
+                      traced("session_graphs", runtime,
+                             lambda: self._capture_session(
+                                 runtime, _entry_index(
+                                     runtime, "decode_executables"))),
                       version_fn=self._weights_version),
         ]
 
@@ -302,7 +334,8 @@ class ModelEndpoint:
                  plan_offset: int):
         """Greedy autoregressive generation using the freshened
         executables and cache; returns row 0's tokens.  ``plan_offset`` =
-        fr_state index of 'decode_executables' (``session_plan_entries``)."""
+        fr_state index of 'decode_executables' (``session_plan_entries``).
+        Each decode step is recorded (``telemetry/recorder.py``)."""
         ctx.fr_fetch(0)
         ctx.fr_fetch(plan_offset)
         # the preallocated session cache: prefill seeds it in place and
@@ -311,54 +344,79 @@ class ModelEndpoint:
         # the steps bound to the params and that cache
         ctx.fr_warm(plan_offset + 2)
         prefill, decode = _fetched(ctx.runtime, plan_offset + 2)
+        rec = recorder.recorder_of(self.tracer)
+        if rec is not None:
+            instance = rec.instance_key(ctx.runtime)
+            (current_span() or NULL_SPAN).annotate(instance=instance)
         toks = self._tokens(tokens)
         logits, _ = prefill(toks)
         B, S = toks.shape
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        timer = None
+        if rec is not None:
+            # made once the prefill is enqueued: it marks the prefill's end
+            timer = rec.decode_timer(self.name, instance, self.device,
+                                     decode.started)
         out = [int(tok[0, 0])]
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
-        for _ in range(n_steps - 1):
+        for i in range(n_steps - 1):
+            if timer is not None:
+                timer.begin()
             # copied into the decode graph's static token and pos
             logits, _ = decode(tok, pos)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
             pos = pos + 1
+            if timer is not None:
+                timer.stepped()
             out.append(int(tok[0, 0]))
+            if timer is not None:
+                timer.end(S + i)
+        if timer is not None:
+            timer.close()
         return out
 
     def code(self, ctx: RunContext, args):
-        """The run-hook body (Algorithm 3: annotated λ)."""
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t0 = time.monotonic()
+        """The run-hook body (Algorithm 3: annotated λ).  Its segments
+        are the result's ``timing`` and phases of the invocation span on
+        this thread (``plan.*`` and ``execute``), on that span's clock."""
+        span = current_span() or NULL_SPAN
+        # the span's tracer clock: the host monotonic clock unless a test
+        # injected one
+        clock = span.tracer.clock if span else time.monotonic
+        rec = recorder.recorder_of(self.tracer)
+        if rec is not None:
+            span.annotate(instance=rec.instance_key(ctx.runtime))
+        t0 = clock()
         tokens = self._tokens(args["tokens"])
         params = ctx.fr_fetch(0)                  # FrFetch(0, DataGet(...))
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t_w = time.monotonic()
+        span.phase_from("plan.weights", t0)
+        t_w = clock()
         compiled = ctx.fr_fetch(1)                # FrFetch(1, compile)
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t_c = time.monotonic()
+        span.phase_from("plan.compile", t_w)
+        t_c = clock()
         ctx.fr_warm(2)                            # FrWarm(2, warmup)
         held = _fetched(ctx.runtime, 2)
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t_u = time.monotonic()
+        span.phase_from("plan.warmup", t_c)
+        t_u = clock()
         # the step the warm-up bound to these params; bound here only if
         # the warm budget held the warm-up back (timed on its own, never
         # as execute), and then kept by the entry for the next invoke
         step, captured = compiled.bind(params)
         if isinstance(held, _ScoreStep):     # an inferred plan may hold none
             held.step = step
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t_x = time.monotonic() if captured else t_u
+        if captured:
+            span.phase_from("plan.capture", t_u)
+        t_x = clock() if captured else t_u
         extra = ctx.fr_fetch(3) if len(ctx.runtime.fr_state.plan) > 3 else None
         logits = _to_numpy(step(tokens))          # waits for the device
-        # fabriclint: allow[clock] -- measured run-phase timing is a wall-clock contract
-        t1 = time.monotonic()
+        span.phase_from("execute", t_x)
+        t1 = clock()
         self.warm_budget.observe((self.name, self.batch_size, self.seq_len))
         timing = {"total": t1 - t0, "weights": t_w - t0,
                   "compile": t_c - t_w, "warmup": t_u - t_c,
                   "execute": t1 - t_x}
         if captured:
             timing["capture"] = t_x - t_u
-        self.timings.append(timing)
         return {"logits": logits, "timing": timing, "extra": extra}
 
     def spec(self) -> FunctionSpec:
@@ -385,6 +443,8 @@ class ServingEngine:
         # one tracer for the whole engine: the base scheduler and (if a
         # fabric is built) every shard share it, so exported traces show
         # the full request path regardless of placement
+        if scheduler is None and tracer is None:
+            tracer = recorder.process_tracer()
         self.scheduler = scheduler or FreshenScheduler(tracer=tracer)
         if tracer is not None and not self.scheduler.tracer.enabled:
             self.scheduler.tracer = tracer
@@ -508,6 +568,9 @@ class ServingEngine:
         N is clamped to the endpoint's compiled batch shape (padding
         covers partial fills; slicing beyond it cannot)."""
         self.endpoints[ep.name] = ep
+        if isinstance(ep, ModelEndpoint) and ep._tracer is None:
+            # an endpoint given no tracer records where its engine does
+            ep._tracer = self.tracer
         if pool_config is None:
             pool_config = self._default_pool_config()
         if backend is not None:

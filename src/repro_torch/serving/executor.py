@@ -18,7 +18,10 @@ one XLA executable.  Here that takes two stages:
   ``torch.cuda.graph`` on that stream.  Each later call copies the fed
   arguments (tokens; token and pos) into the graph's static buffers,
   replays it, and returns outputs the next replay does not overwrite;
-  the bound cache stays in place.  ``capture_seconds`` records each
+  the bound cache stays in place.  Each graph begins by recording
+  ``BoundStep.started``, a timing event the replay records again on the
+  device as the graph starts, so a caller can time the replay on the
+  device without the host's launch of it.  ``capture_seconds`` records each
   capture beside the compile.  A capture that fails raises: there is no
   eager step on the card.  On the CPU a bound step runs eagerly, after
   one warm run on zeros of the fed arguments.
@@ -139,6 +142,14 @@ def _graph_backend(device: torch.device) -> Optional[_CudaGraphs]:
         return backend
 
 
+def _start_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """A timing event that a capture on ``device`` records as a node of
+    its graph (``external``), or None off CUDA."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
 class BoundStep:
     """A compiled step bound to its first arguments: a captured graph on
     a card, an eager call on the CPU.  Call it with the fed arguments."""
@@ -147,6 +158,9 @@ class BoundStep:
         self.compiled = compiled
         self.bound = bound
         self.graph = None
+        # recorded on the device as each replay of the graph starts; None
+        # for an eager step
+        self.started: Optional[torch.cuda.Event] = None
         self.launches: Dict[str, int] = {}     # per replay, from capture
         self.warm_seconds = 0.0
         self.capture_seconds = 0.0
@@ -162,15 +176,21 @@ class BoundStep:
             self.warm_seconds = time.monotonic() - t0
             return
         self.static = static = tensors_like_specs(compiled.fed_specs, dev)
+        started = self.started = _start_event(dev)
 
         def run():
             return compiled.fn(*bound, *static)
+
+        def timed():
+            if started is not None:
+                started.record()
+            return run()
         with torch.no_grad(), capture_lock(dev):
             t0 = time.monotonic()
             backend.warm(run)
             t1 = time.monotonic()
             with ops.recording_launches() as tally, _gc_paused():
-                self.graph, self.out = backend.capture(run)
+                self.graph, self.out = backend.capture(timed)
             t2 = time.monotonic()
         self.warm_seconds, self.capture_seconds = t1 - t0, t2 - t1
         self.launches = tally

@@ -16,9 +16,11 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.checkpoint import load_pytree, save_pytree
+from repro_torch.checkpoint import save_pytree
+from repro_torch.checkpoint.io import params_from_numpy, read_pytree
 from repro_torch.core.network import TIERS, Connection
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.telemetry import recorder
 
 
 class WeightStore:
@@ -63,14 +65,20 @@ class WeightStore:
         modeled_transfer_seconds).  The real seconds include the copy to
         the card and wait for it."""
         dev = resolve_device(device)
+        path = self._path(name)
         t0 = time.monotonic()
-        params = load_pytree(self._path(name), dev)
-        if dev.type == "cuda":
-            # the copies ran on this thread's stream; a device-wide wait
-            # would also wait on other threads' work
-            torch.cuda.current_stream(dev).synchronize()
+        nbytes = os.path.getsize(path)
+        # two work spans under the load's (telemetry/recorder.py)
+        with recorder.child("weights.read", nbytes=nbytes):
+            flat, dtype_map = read_pytree(path)
+        with recorder.child("weights.copy",
+                            nbytes=sum(a.nbytes for a in flat.values())):
+            params = params_from_numpy(flat, dev, dtype_map)
+            if dev.type == "cuda":
+                # the copies ran on this thread's stream; a device-wide
+                # wait would also wait on other threads' work
+                torch.cuda.current_stream(dev).synchronize()
         real = time.monotonic() - t0
-        nbytes = os.path.getsize(self._path(name))
         conn = conn or Connection(self.tier)
         modeled = conn.transfer(nbytes)
         with self._lock:

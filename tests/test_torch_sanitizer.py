@@ -1,7 +1,8 @@
 """The port's lock-order sanitizer (``repro_torch.analysis.sanitizer``):
 the reference's tests (``tests/test_sanitizer.py``) on the port's copies
 of the pool, scheduler, router and worker, the locks of the ported
-serving path, and the port's two-line difference from the reference.
+serving path, and the port's three-line difference from the reference
+(its two path markers, and its recorder among the telemetry files).
 
 The reference's sanitizer tracks locks made in files under ``/repro/``;
 the port's, under ``/repro_torch/``.  Both patch the same ``threading``
@@ -73,11 +74,13 @@ def test_differs_from_the_reference_in_its_two_markers_only():
         if line.startswith(("---", "+++", "@@")):
             continue
         (removed if line.startswith("-") else added).append(line[1:])
+    # and in its telemetry files, which add the port's recorder
     assert [line.split("=")[0].strip() for line in removed] == \
-        ["_TRACK_MARKER", "_SKIP_MARKER"]
+        ["_TRACK_MARKER", "_SKIP_MARKER", "_TELEMETRY_FILES"]
     assert [line.split("=")[0].strip() for line in added] == \
-        ["_TRACK_MARKER", "_SKIP_MARKER"]
+        ["_TRACK_MARKER", "_SKIP_MARKER", "_TELEMETRY_FILES"]
     assert '"repro_torch"' in added[0] and '"analysis"' in added[1]
+    assert added[2].replace(', "recorder.py"', "") == removed[2]
     assert sanitizer._TRACK_MARKER.endswith("repro_torch" + "/") or \
         sanitizer._TRACK_MARKER.endswith("repro_torch" + "\\")
 
