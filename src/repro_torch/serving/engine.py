@@ -432,20 +432,22 @@ class ServingEngine:
     Each deployed endpoint is backed by an ``InstancePool``: concurrent
     requests admitted via ``submit`` fan out across warm instances, scale
     the pool up under queue pressure, and are prewarmed by
-    predicted-successor freshen dispatch.  ``deploy`` eagerly initializes
-    the primary instance (the seed-era warm container); additional
-    instances cold-start on demand."""
+    predicted-successor freshen dispatch; given no scheduler, the engine
+    builds a ``LeadScheduler`` (``serving/lead.py``), which holds the warm
+    instance until a predicted arrival that outlasts keep-alive.  ``deploy``
+    eagerly initializes the primary instance (the seed-era warm
+    container); additional instances cold-start on demand."""
 
     def __init__(self, scheduler=None, router_policy: str = "warmth-aware",
                  spill_timeout: Optional[float] = None,
                  tracer=None):
-        from repro_torch.core.scheduler import FreshenScheduler
+        from repro_torch.serving.lead import LeadScheduler
         # one tracer for the whole engine: the base scheduler and (if a
         # fabric is built) every shard share it, so exported traces show
         # the full request path regardless of placement
         if scheduler is None and tracer is None:
             tracer = recorder.process_tracer()
-        self.scheduler = scheduler or FreshenScheduler(tracer=tracer)
+        self.scheduler = scheduler or LeadScheduler(tracer=tracer)
         if tracer is not None and not self.scheduler.tracer.enabled:
             self.scheduler.tracer = tracer
         self.tracer = self.scheduler.tracer
