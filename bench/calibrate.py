@@ -7,8 +7,9 @@ For each seed, one run of the cell at its own size and load, then its
 compared numbers twice: the program's answers against the float32
 reference (the lower reading), and the control, the reference itself in
 float8 (e4m3, one scale per tensor) in the program's place (the upper
-reading).  One JSON line per seed.  The benchmark's own runs never run
-the control.
+reading).  The reference is the cell's configuration's own, the module
+its ``reference`` key names.  One JSON line per seed.  The benchmark's own
+runs never run the control.
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ def row_spread(cell, seed, w, device) -> dict:
 
     from bench.harness import check
     from bench.harness.weights import make_weights
-    from bench.reference import transformer as ref
-    m = cell.config["model"]
-    W = make_weights(m, getattr(torch, cell.config["dtype"]), seed, device)
+    ref, m = cell.reference, cell.config["model"]
+    W = make_weights(ref, m, getattr(torch, cell.config["dtype"]), seed,
+                     device)
     near = []
     for i in sorted(w.answers):
         toks = torch.as_tensor(w.inputs[i], device=device)
@@ -42,7 +43,7 @@ def row_spread(cell, seed, w, device) -> dict:
                      default=None) for r in range(B)]
     out = {}
     for side, precision in (("program", "float32"), ("control_fp8", "fp8")):
-        errs = check.row_errors(m, W, w, device, precision)
+        errs = check.row_errors(ref, m, W, w, device, precision)
         order = sorted(range(len(errs)), key=errs.__getitem__)[::-1]
         out[side] = {"rows": len(errs), "mean": sum(errs) / len(errs),
                      "top5": [[errs[j], near[j]] for j in order[:5]]}

@@ -121,8 +121,10 @@ class Sampler:
 
 
 class Program:
-    """The system under test, set up from the seed: the weights made on
-    the device, checked against the program's layout, published once to a
+    """The system under test, set up from the seed: the program's
+    ``ModelConfig`` from the configuration (``spec.model_config``), the
+    weights made on the device in its reference's layout, checked against
+    the program's layout, published once to a
     ``WeightStore`` under a temporary directory and linked under every
     function name, then freed before anything is deployed."""
 
@@ -131,15 +133,15 @@ class Program:
         from repro_torch.checkpoint.io import (flatten_with_paths,
                                                unflatten_paths)
         from repro_torch.models import make_model
-        from bench.harness.spec import program_config
+        from bench.harness.spec import model_config
         self.cell, self.device = cell, device
         self.marks: List[tuple] = [("imports", time.monotonic())]
         conf = cell.config
         self.m = conf["model"]
         self.dtype = getattr(torch, conf["dtype"])
-        self.pcfg = program_config(conf)
+        self.pcfg = model_config(conf)
         self.B, self.S = conf["endpoint"]["batch"], conf["endpoint"]["seq"]
-        W = make_weights(self.m, self.dtype, seed, device)
+        W = make_weights(cell.reference, self.m, self.dtype, seed, device)
         check_layout(W, flatten_with_paths(
             make_model(self.pcfg, device="cpu").param_specs()))
         self.mark("weights")

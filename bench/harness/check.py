@@ -1,6 +1,7 @@
 """Whether what the timed path produced is correct: the window's answers
 held against the plain float32 reference, once the window has closed and
-the program's state is freed.
+the program's state is freed.  The reference is the configuration's own,
+the module its ``reference`` key names (``Cell.reference``).
 
 The reference gets the weights anew from the seed and the inputs the
 window sent; it takes nothing the program made.  Two numbers, each held
@@ -29,7 +30,6 @@ import numpy as np
 import torch
 
 from bench.harness.weights import make_weights
-from bench.reference import transformer as ref
 
 
 def _rel_err(served: np.ndarray, want: torch.Tensor) -> float:
@@ -39,7 +39,7 @@ def _rel_err(served: np.ndarray, want: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(want))
 
 
-def _candidate(m, W, toks, served, precision):
+def _candidate(ref, m, W, toks, served, precision):
     """What is judged: the served logits, or for the control the
     reference's own at ``precision``."""
     if precision == "float32":
@@ -48,20 +48,20 @@ def _candidate(m, W, toks, served, precision):
                        precision=precision).cpu().numpy()
 
 
-def row_errors(m, W, w, device, precision="float32") -> List[float]:
+def row_errors(ref, m, W, w, device, precision="float32") -> List[float]:
     """Each row's error of every sampled answer (entry ``functions``)."""
     errs = []
     for i in sorted(w.answers):
         toks = torch.as_tensor(w.inputs[i], device=device)
         want = ref.forward(m, W, toks, last_only=True)
-        got = _candidate(m, W, toks, w.answers[i], precision)
+        got = _candidate(ref, m, W, toks, w.answers[i], precision)
         errs += [_rel_err(got[r], want[r]) for r in range(toks.shape[0])]
     return errs
 
 
-def scoring(m, W, w, device, precision="float32") -> Dict[str, float]:
+def scoring(ref, m, W, w, device, precision="float32") -> Dict[str, float]:
     """Full endpoint batches (entry ``functions``)."""
-    return {"logits_rel_err_mean": _mean(row_errors(m, W, w, device,
+    return {"logits_rel_err_mean": _mean(row_errors(ref, m, W, w, device,
                                                    precision))}
 
 
@@ -69,7 +69,7 @@ def _mean(errs: List[float]) -> float:
     return sum(errs) / len(errs) if errs else float("inf")
 
 
-def _gaps(m, W, prompt_row, served, device, precision) -> np.ndarray:
+def _gaps(ref, m, W, prompt_row, served, device, precision) -> np.ndarray:
     """Reference gap of each served token, and with ``precision`` set
     below float32 the gap of the token that precision puts first."""
     S = len(prompt_row)
@@ -92,7 +92,8 @@ def served_rows(served) -> np.ndarray:
     return served[None] if served.ndim == 1 else served
 
 
-def generation(m, W, w, device, precision="float32") -> Dict[str, float]:
+def generation(ref, m, W, w, device, precision="float32"
+               ) -> Dict[str, float]:
     worst = 0.0
     V = m["vocab_size"]
     for i in sorted(w.answers):
@@ -103,8 +104,8 @@ def generation(m, W, w, device, precision="float32") -> Dict[str, float]:
             worst = float("inf")
             continue
         for r, served in enumerate(rows):
-            worst = max(worst, float(_gaps(m, W, w.inputs[i][r], served,
-                                           device, precision).max()))
+            worst = max(worst, float(_gaps(ref, m, W, w.inputs[i][r],
+                                           served, device, precision).max()))
     return {"token_gap": worst}
 
 
@@ -113,15 +114,15 @@ COMPARE = {"functions": scoring, "generate": generation}
 
 def judge(cell, seed: int, w, device, precision: str = "float32"
           ) -> Dict[str, float]:
-    """The cell's compared numbers, from the reference at ``precision``
+    """The cell's compared numbers, from its reference at ``precision``
     (``"fp8"``: the control), with ``missing`` beside them."""
-    conf = cell.config
+    conf, ref = cell.config, cell.reference
     m = conf["model"]
     if device.type == "cuda":
         ref.no_tf32()
-    W = make_weights(m, getattr(torch, conf["dtype"]), seed, device)
+    W = make_weights(ref, m, getattr(torch, conf["dtype"]), seed, device)
     try:
-        numbers = COMPARE[cell.mix["entry"]](m, W, w, device, precision)
+        numbers = COMPARE[cell.mix["entry"]](ref, m, W, w, device, precision)
     finally:
         del W
         gc.collect()

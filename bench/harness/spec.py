@@ -2,6 +2,9 @@
 
 * the cell (``workloads`` entry) and its configuration file
   (``configs[].file``);
+* the configuration's plain reference, the module its ``reference`` key
+  names, and the program's ``ModelConfig`` for it, from the module its
+  ``program`` key names or else from ``program_config`` here;
 * its traffic mix: ``bench/traffic/<traffic>.json``;
 * its correctness limits: ``bench/limits/<workload>.json``;
 * the metrics it reports: the end-to-end metrics whose ``workloads``
@@ -10,10 +13,12 @@
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -29,6 +34,7 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[dict]
     per_layer: List[dict]
+    reference: ModuleType            # the configuration's plain reference
     readers: Dict[str, Callable] = field(default_factory=dict)
 
 
@@ -45,12 +51,50 @@ def _applies(metric: dict, cell: str, reported: set) -> bool:
 
 def reader(name: str) -> Callable:
     """``read(run)`` of ``bench/metrics/<name>.py``."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_')}", path)
+    return _load_module(BENCH / "metrics" / f"{name}.py").read
+
+
+def _bench_module(rel: str) -> ModuleType:
+    """The module at ``rel``, a path from the repository root to a ``.py``
+    file under ``bench/``."""
+    path = (ROOT / rel).resolve()
+    if Path(rel).is_absolute() or path.suffix != ".py" \
+            or not path.is_relative_to(BENCH) or not path.is_file():
+        raise ValueError(f"{rel!r} is no .py file under bench/, given as a "
+                         "path from the repository root")
+    return _load_module(path)
+
+
+@functools.cache
+def _load_module(path: Path) -> ModuleType:
+    """The module at ``path``, loaded once by path: every caller of one
+    file gets the same module."""
+    name = "bench_module_" + "".join(
+        c if c.isalnum() else "_" for c in str(path.relative_to(ROOT)))
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reference(conf: dict) -> ModuleType:
+    """The plain reference of a configuration file: the module its
+    ``reference`` key names, with ``layout``, ``forward`` and ``no_tf32``
+    (``bench/README.md``)."""
+    if "reference" not in conf:
+        raise ValueError(f"configuration {conf.get('name')!r} has no "
+                         "'reference' key: it must name its plain reference, "
+                         "e.g. \"reference\": \"bench/reference/transformer.py\"")
+    return _bench_module(conf["reference"])
+
+
+def model_config(conf: dict):
+    """The program's ``ModelConfig`` for a configuration file: what
+    ``program_config(conf)`` of the module its ``program`` key names
+    returns, or without the key, ``program_config`` below."""
+    if "program" in conf:
+        return _bench_module(conf["program"]).program_config(conf)
+    return program_config(conf)
 
 
 def load(workload: str, root: Path = ROOT, bench_dir: Path = BENCH) -> Cell:
@@ -67,18 +111,21 @@ def load(workload: str, root: Path = ROOT, bench_dir: Path = BENCH) -> Cell:
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if _applies(m, workload, reported)]
-    cell = Cell(name=workload, chips=int(w["chips"]),
-                config=_load_json(root / conf["file"]),
+    config = _load_json(root / conf["file"])
+    cell = Cell(name=workload, chips=int(w["chips"]), config=config,
                 mix=_load_json(bench_dir / "traffic" / f"{w['traffic']}.json"),
                 limits=_load_json(bench_dir / "limits" / f"{workload}.json"),
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer,
+                reference=reference(config))
     cell.readers = {m["name"]: reader(m["name"]) for m in per_layer}
     return cell
 
 
 def program_config(conf: dict):
-    """The program's ``ModelConfig`` for a configuration file: the
-    program's own entry for ``arch``, with every size the file states."""
+    """The program's ``ModelConfig`` for a configuration file with no
+    ``program`` key: the program's own entry for ``arch``, with every size
+    the file states, as one segment of GQA attention with a dense MLP or
+    routed experts."""
     import dataclasses
 
     from repro_torch.configs import get_config

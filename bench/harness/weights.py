@@ -1,22 +1,24 @@
 """Weights made from the seed, on the device, in a few large calls.
 
-One ``torch.randn`` per stored type fills a flat buffer from a generator
-on the device; each leaf is a view of it, scaled in place.  The layout is
-the reference's (``bench.reference.transformer.layout``); the program's
-own parameter specs must match it leaf for leaf, or the run stops.
+One ``torch.randn`` per stored type, the types in order of their names,
+fills a flat buffer from a generator on the device; each leaf is a view
+of it in layout order, scaled in place.  The layout is the configuration's
+reference's (``layout`` of the module its ``reference`` key names); the
+program's own parameter specs must match it leaf for leaf, or the run
+stops.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict
 
 import torch
 
-from bench.reference import transformer as ref
 
-
-def make_weights(m: dict, dtype: torch.dtype, seed: int,
+def make_weights(ref: ModuleType, m: dict, dtype: torch.dtype, seed: int,
                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """``{key path: tensor}`` for model block ``m``, drawn from ``seed``."""
+    """``{key path: tensor}`` for model block ``m`` in the layout of the
+    reference ``ref``, drawn from ``seed``."""
     leaves = ref.layout(m, dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     totals: Dict[torch.dtype, int] = {}

@@ -18,6 +18,21 @@ Everything runs in float32 with TF32 off.  ``precision="fp8"`` rounds both
 operands of every weight product to float8 e4m3 (one scale per tensor):
 the control, the step below the served bfloat16 that a faster path would
 tempt.  This module imports neither the program nor JAX.
+
+It is one reference module; a configuration file names its own by its
+``reference`` key, a path from the repository root.  Every reference
+module provides, as this one does:
+
+* ``layout(m, dtype)``: every weight leaf, in the order the weights are
+  drawn, as (key path, shape, type, kind, scale);
+* ``forward(m, W, tokens, *, last_only=False, precision="float32",
+  margins=None)``: float32 logits, with ``precision="fp8"`` the control;
+  ``margins``, where given, a list that collects each expert layer's
+  (B*S,) top-k margins (a model without experts adds none);
+* ``no_tf32()``: full float32 products on the card;
+
+and imports only ``torch``, the standard library and other reference
+modules under ``bench/reference/``.
 """
 from __future__ import annotations
 

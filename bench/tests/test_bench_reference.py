@@ -1,13 +1,17 @@
 """The benchmark's plain reference against the program it judges, at a
 tiny size on the CPU in float32: the same weights and tokens give the same
 logits, through experts routed without drops and through the decode cache.
-(The test may import both; the reference imports nothing of the program.)"""
+(The test may import both; the reference imports nothing of the program.)
+A configuration's reference and program mapping are the modules its file
+names."""
+import hashlib
 import json
 from pathlib import Path
 
 import pytest
 import torch
 
+from bench.harness import spec
 from bench.harness.spec import program_config
 from bench.harness.weights import check_layout, make_weights
 from bench.reference import transformer as ref
@@ -15,13 +19,18 @@ from bench.reference import transformer as ref
 DATA = Path(__file__).parent / "data" / "configs"
 
 
+def _conf(name):
+    return json.loads((DATA / f"{name}.json").read_text())
+
+
 def _setup(name, seed=7):
     from repro_torch.checkpoint.io import flatten_with_paths, unflatten_paths
     from repro_torch.models import make_model
-    conf = json.loads((DATA / f"{name}.json").read_text())
+    conf = _conf(name)
     m = conf["model"]
-    model = make_model(program_config(conf), device="cpu")
-    W = make_weights(m, torch.float32, seed, torch.device("cpu"))
+    model = make_model(spec.model_config(conf), device="cpu")
+    W = make_weights(spec.reference(conf), m, torch.float32, seed,
+                     torch.device("cpu"))
     check_layout(W, flatten_with_paths(model.param_specs()))
     return m, model, W, unflatten_paths(W)
 
@@ -107,9 +116,68 @@ def test_layout_mismatch_is_refused():
 
 
 def test_weights_repeat_from_the_seed():
-    m = json.loads((DATA / "tiny-moe.json").read_text())["model"]
-    a = make_weights(m, torch.float32, 2 ** 31 + 9, torch.device("cpu"))
-    b = make_weights(m, torch.float32, 2 ** 31 + 9, torch.device("cpu"))
-    c = make_weights(m, torch.float32, 2 ** 31 + 10, torch.device("cpu"))
+    m = _conf("tiny-moe")["model"]
+    cpu = torch.device("cpu")
+    a = make_weights(ref, m, torch.float32, 2 ** 31 + 9, cpu)
+    b = make_weights(ref, m, torch.float32, 2 ** 31 + 9, cpu)
+    c = make_weights(ref, m, torch.float32, 2 ** 31 + 10, cpu)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed"], c["embed"])
+
+
+# sha256 over the leaves in key order (each key, then its bytes) of the
+# weights drawn at seed 7 on the CPU by the parent of the change that let a
+# configuration name its reference, commit 3de6fdb85b0c35b5b8e33ec3b47abe6e0f210360
+PARENT_DIGESTS = {
+    ("tiny-moe", torch.float32):
+        "ae319096da4f3cecb3b211a73d209906a63497b0efe1b0cf226460c5913d3bf7",
+    ("tiny-moe", torch.bfloat16):
+        "1b0488c49b853a3bcc286c99b8a769f130cc894d8e6ed179aa3295ab84b0f2d2",
+    ("tiny-dense", torch.float32):
+        "d6e60a62ddc418fa992a61db44673a17c0cbbb79e6b3cdd1beb11388787c5969",
+    ("tiny-dense", torch.bfloat16):
+        "77affa215fc969afb88a1b927bca3868bd3d08d1a83b05a40b0be5709e8eeddb",
+}
+
+
+@pytest.mark.parametrize("name,dtype", sorted(PARENT_DIGESTS, key=str))
+def test_weights_are_the_parents(name, dtype):
+    """The weights drawn through the configuration's named reference are,
+    bit for bit, those the harness drew when it imported the reference by
+    name: each seed gives the existing cells the same weights."""
+    conf = _conf(name)
+    W = make_weights(spec.reference(conf), conf["model"], dtype, 7,
+                     torch.device("cpu"))
+    h = hashlib.sha256()
+    for k in sorted(W):
+        h.update(k.encode())
+        h.update(W[k].contiguous().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    assert h.hexdigest() == PARENT_DIGESTS[(name, dtype)]
+
+
+def test_reference_is_the_named_module():
+    plain = spec.reference(_conf("tiny-moe"))
+    assert Path(plain.__file__) == Path(ref.__file__)
+    named = spec.reference(_conf("tiny-named"))
+    assert named is spec.reference(_conf("tiny-named"))      # loaded once
+    assert Path(named.__file__) == DATA.parent / "reference" / "tiny_named.py"
+
+
+@pytest.mark.parametrize("conf,match", [
+    ({"name": "x"}, "'reference' key"),
+    ({"name": "x", "reference": "src/repro_torch/__init__.py"}, "under bench"),
+    ({"name": "x", "reference": "bench/../src/repro_torch/__init__.py"},
+     "under bench"),
+    ({"name": "x", "reference": "/etc/passwd"}, "under bench"),
+    ({"name": "x", "reference": "bench/reference/absent.py"}, "under bench"),
+    ({"name": "x", "reference": "bench/README.md"}, "under bench")])
+def test_reference_not_named_is_refused(conf, match):
+    with pytest.raises(ValueError, match=match):
+        spec.reference(conf)
+
+
+def test_program_key_absent_serves_the_default_mapping():
+    conf = _conf("tiny-moe")
+    assert "program" not in conf
+    assert spec.model_config(conf) == program_config(conf)

@@ -30,7 +30,8 @@ def _run(name, seconds=2.0):
 
 
 @pytest.mark.parametrize("name,metric", [
-    ("tiny-fresh", "device_gb_s_per_invoke"), ("tiny-gen", "tokens_per_s")])
+    ("tiny-fresh", "device_gb_s_per_invoke"), ("tiny-gen", "tokens_per_s"),
+    ("tiny-named", "device_gb_s_per_invoke")])
 def test_sound_run_is_correct(name, metric):
     res = _run(name)
     assert res["correct"], res["check"]
@@ -133,6 +134,48 @@ def test_every_returned_row_is_checked(monkeypatch, alter, correct):
     _every_row(monkeypatch, alter)
     res = _run("tiny-gen")
     assert res["correct"] is correct, res["check"]
+
+
+def test_named_reference_judges(monkeypatch):
+    """``tiny-named``'s file names a reference of its own: a change to that
+    module alone makes the same run not correct, and the plain decoder's
+    module is not what judged it."""
+    from bench.reference import transformer
+    plain = transformer.forward
+    named = spec.load("tiny-named", DATA, DATA).reference
+    assert named is not transformer
+
+    def off(*a, **kw):
+        return plain(*a, **kw) * 1.01
+    monkeypatch.setattr(named, "forward", off)
+    res = _run("tiny-named")
+    assert not res["correct"], res["check"]
+    assert transformer.forward is plain
+    assert spec.reference(json.loads(
+        (DATA / "configs" / "tiny-moe.json").read_text())).forward is not off
+
+
+def test_named_program_is_served(monkeypatch):
+    """``tiny-named``'s file names a program mapping of its own: the
+    ``ModelConfig`` its ``program_config`` returns is the one served, and
+    one that differs from the reference's layout stops the run."""
+    conf = spec.load("tiny-named", DATA, DATA).config
+    mod = spec._bench_module(conf["program"])
+    mapping = mod.program_config
+    served = []
+
+    def recorded(c):
+        served.append(mapping(c))
+        return served[-1]
+    monkeypatch.setattr(mod, "program_config", recorded)
+    assert _run("tiny-named")["correct"]
+    assert served
+
+    def wider(c):
+        return mapping(dict(c, model=dict(c["model"], vocab_size=98)))
+    monkeypatch.setattr(mod, "program_config", wider)
+    with pytest.raises(RuntimeError, match="layout"):
+        _run("tiny-named")
 
 
 def test_missing_answers_are_not_correct():
