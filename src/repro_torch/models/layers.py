@@ -72,20 +72,56 @@ def rmsnorm_apply(params, x, eps: float = 1e-6):
 
 
 # ----------------------------------------------------------------------
-# RoPE (half-split rotation, float32)
-def rope_frequencies(head_dim: int, theta: float, device=None):
+# RoPE (half-split rotation, float32), optionally YaRN-scaled
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction, 0.1 * mscale * ln(factor) + 1 (1 for
+    no extension)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(head_dim: int, theta: float, yarn) -> tuple:
+    """(low, high): the frequency indices below which YaRN keeps RoPE's
+    own frequency and from which it takes it divided by the factor, the
+    dimensions that turn ``beta_fast`` and ``beta_slow`` times over the
+    original context, clamped to [0, head_dim - 1]."""
+    def dim(turns):
+        return (head_dim * math.log(yarn.original_max_position_embeddings
+                                    / (2 * math.pi * turns))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim(yarn.beta_fast)), 0),
+            min(math.ceil(dim(yarn.beta_slow)), head_dim - 1))
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None, yarn=None):
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return 1.0 / (theta ** exponent)                     # (head_dim/2,)
+    freqs = 1.0 / (theta ** exponent)                    # (head_dim/2,)
+    if yarn is None:
+        return freqs
+    # a linear ramp from the original frequencies (below ``low``) to the
+    # interpolated ones, freqs / factor (from ``high``)
+    low, high = yarn_range(head_dim, theta, yarn)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0.0, 1.0)
+    return freqs / yarn.factor * ramp + freqs * (1.0 - ramp)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+def apply_rope(x, positions, theta: float, yarn=None):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S); ``yarn``:
+    a ``configs.port.YaRN``, or None for plain RoPE."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)
+    freqs = rope_frequencies(hd, theta, x.device, yarn)
     angles = positions[..., None].float() * freqs        # (..., S, hd/2)
     angles = angles[..., None, :]                        # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

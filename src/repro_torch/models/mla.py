@@ -15,6 +15,10 @@ then either
   ``rope_head_dim``, 576 in deepseek-v2-lite) is beyond K2's, so no
   kernel runs on this path.
 
+Where the config sets YaRN (``configs/port.py``), the query's rope part
+and ``kr`` rotate at YaRN's frequencies in prefill and in both decode
+modes, and the softmax scale takes YaRN's mscale squared (``_scale``).
+
 The kernels read (B, S, H, D) tensors with a contiguous, 16-byte aligned
 head dimension, so the keys, whose rope part is one head broadcast over
 all heads, are materialised by a concat; the values are a strided view
@@ -26,10 +30,12 @@ import math
 
 import torch
 
+from repro_torch.configs.port import rope_scaling
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (ParamFactory, apply_rope, dense_init,
-                                      init_rmsnorm, rmsnorm_apply)
+                                      init_rmsnorm, rmsnorm_apply,
+                                      yarn_mscale)
 
 
 def init_mla(make: ParamFactory, cfg) -> dict:
@@ -63,7 +69,7 @@ def _mla_q(p, x, cfg, positions):
         q = x @ p["wq"]
     q = q.reshape(B, S, cfg.n_heads, m.nope_head_dim + m.rope_head_dim)
     qn, qr = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    return qn, apply_rope(qr, positions, cfg.rope_theta)
+    return qn, apply_rope(qr, positions, cfg.rope_theta, rope_scaling(cfg))
 
 
 def _mla_latents(p, x, cfg, positions):
@@ -72,7 +78,8 @@ def _mla_latents(p, x, cfg, positions):
     kv = x @ p["wkv_a"]
     ckv, kr = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     ckv = rmsnorm_apply(p["ckv_norm"], ckv, cfg.norm_eps)
-    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta,
+                    rope_scaling(cfg))[:, :, 0, :]
     return ckv, kr
 
 
@@ -93,8 +100,14 @@ def _keys(kn, kr):
 
 
 def _scale(cfg) -> float:
+    """The softmax scale: 1/sqrt(dk), times YaRN's mscale(mscale_all_dim)
+    squared where the config sets YaRN (as DeepSeek-V2 does)."""
     m = cfg.mla
-    return 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    yarn = rope_scaling(cfg)
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
 
 
 def mla_prefill(p, x, cfg, *, positions=None):

@@ -21,7 +21,12 @@ range (``moe/routing``, ``moe/dispatch``, ``moe/experts``,
 ``moe/combine``), so a trace attributes device time to them; with no
 profiler running the ranges cost one flag test.  ``record_routing()``
 collects each call's choices, each token's top-k margin and the dropped
-assignments, for the card-side gates and the tests.
+assignments, for the card-side gates and the tests.  ``counting_rows()``
+sums what each dispatch computes against what it routes, host integers
+fixed by the shapes: a captured step counts them once, at capture.
+
+The top-k gates are renormalised to sum to one unless the config keeps
+them raw (``configs/port.py`` ``norm_topk_prob``, DeepSeek-V2).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 import torch.nn.functional as F
 
+from repro_torch.configs.port import norm_topk_prob
 from repro_torch.models.layers import (ParamFactory, dense_init, init_mlp,
                                       mlp_apply)
 
@@ -110,6 +116,31 @@ def _recorder():
     return getattr(_recording, "rec", None)
 
 
+@dataclass
+class RowCount:
+    """What the ``routed`` calls on this thread inside a
+    ``counting_rows()`` block dispatched, summed: ``assignments`` the
+    routed (token, expert) pairs, T * k, and ``rows`` the expert rows
+    computed, E_loc * G * C (capacity rows, used or not)."""
+    assignments: int = 0
+    rows: int = 0
+
+
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def counting_rows():
+    """Count every ``routed`` call on this thread inside the block."""
+    count = RowCount()
+    prev = getattr(_counting, "count", None)
+    _counting.count = count
+    try:
+        yield count
+    finally:
+        _counting.count = prev
+
+
 # ----------------------------------------------------------------------
 def _expert_ffn(p, x, activation: str):
     """x: (E, C*, d) -> (E, C*, d) through each expert's own weights."""
@@ -129,7 +160,8 @@ def _route(p, x2d, e):
     logits = x2d.float() @ p["router"]                        # (T, E) f32
     gates = torch.softmax(logits, dim=-1)
     probs, idx = torch.topk(gates, e.top_k, dim=-1)
-    probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+    if norm_topk_prob(e):
+        probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     # Switch/GShard load-balance aux loss
     me = gates.mean(dim=0)                                    # (E,)
     ce = _one_hot(idx, e.n_experts, torch.float32).sum(dim=(0, 1)) \
@@ -216,6 +248,10 @@ def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
     E, k = e.n_experts, e.top_k
     E_loc = p["wi_e"].shape[0]
     whole = E_loc == E
+    count = getattr(_counting, "count", None)
+    if count is not None:
+        count.assignments += T * k
+        count.rows += E_loc * G * C
 
     with _stage("dispatch"):
         xg = x2d.reshape(G, gs, d)

@@ -335,7 +335,8 @@ class ModelEndpoint:
         """Greedy autoregressive generation using the freshened
         executables and cache; returns row 0's tokens.  ``plan_offset`` =
         fr_state index of 'decode_executables' (``session_plan_entries``).
-        Each decode step is recorded (``telemetry/recorder.py``)."""
+        Each decode step is recorded (``telemetry/recorder.py``), and for
+        a model with experts each replay's expert rows too."""
         ctx.fr_fetch(0)
         ctx.fr_fetch(plan_offset)
         # the preallocated session cache: prefill seeds it in place and
@@ -348,7 +349,10 @@ class ModelEndpoint:
         if rec is not None:
             instance = rec.instance_key(ctx.runtime)
             (current_span() or NULL_SPAN).annotate(instance=instance)
+        # a step's expert rows are fixed at its capture: recorded per replay
+        rows = rec is not None and decode.moe_rows[1] > 0
         toks = self._tokens(tokens)
+        t_pre = rec.clock() if rows else 0.0
         logits, _ = prefill(toks)
         B, S = toks.shape
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
@@ -357,15 +361,22 @@ class ModelEndpoint:
             # made once the prefill is enqueued: it marks the prefill's end
             timer = rec.decode_timer(self.name, instance, self.device,
                                      decode.started)
+        if rows:
+            rec.step_rows("prefill", timer.gen, self.name, instance, t_pre,
+                          prefill.moe_rows)
         out = [int(tok[0, 0])]
         pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
         for i in range(n_steps - 1):
             if timer is not None:
                 timer.begin()
+            t_dec = rec.clock() if rows else 0.0
             # copied into the decode graph's static token and pos
             logits, _ = decode(tok, pos)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
             pos = pos + 1
+            if rows:                 # while the device runs the step
+                rec.step_rows("decode", timer.gen, self.name, instance,
+                              t_dec, decode.moe_rows)
             if timer is not None:
                 timer.stepped()
             out.append(int(tok[0, 0]))

@@ -22,7 +22,10 @@ one XLA executable.  Here that takes two stages:
   ``BoundStep.started``, a timing event the replay records again on the
   device as the graph starts, so a caller can time the replay on the
   device without the host's launch of it.  ``capture_seconds`` records each
-  capture beside the compile.  A capture that fails raises: there is no
+  capture beside the compile.  ``launches`` and ``moe_rows`` (the routed
+  assignments and the expert rows the dispatch computes,
+  ``models/moe.py`` ``counting_rows``) are counted once, at capture, and
+  hold for every replay.  A capture that fails raises: there is no
   eager step on the card.  On the CPU a bound step runs eagerly, after
   one warm run on zeros of the fed arguments.
 
@@ -56,6 +59,7 @@ import torch
 from repro_torch.checkpoint.io import tree_map
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.specs import spec_leaves, tensors_like_specs
 
 _locks_guard = threading.Lock()
@@ -162,6 +166,8 @@ class BoundStep:
         # for an eager step
         self.started: Optional[torch.cuda.Event] = None
         self.launches: Dict[str, int] = {}     # per replay, from capture
+        # (routed assignments, expert rows computed) per run, likewise
+        self.moe_rows: Tuple[int, int] = (0, 0)
         self.warm_seconds = 0.0
         self.capture_seconds = 0.0
         self._lock = threading.Lock()
@@ -172,8 +178,10 @@ class BoundStep:
             # arguments
             fed = tensors_like_specs(compiled.fed_specs, dev)
             t0 = time.monotonic()
-            self(*fed)
+            with moe.counting_rows() as rows:
+                self(*fed)
             self.warm_seconds = time.monotonic() - t0
+            self.moe_rows = (rows.assignments, rows.rows)
             return
         self.static = static = tensors_like_specs(compiled.fed_specs, dev)
         started = self.started = _start_event(dev)
@@ -189,11 +197,13 @@ class BoundStep:
             t0 = time.monotonic()
             backend.warm(run)
             t1 = time.monotonic()
-            with ops.recording_launches() as tally, _gc_paused():
+            with ops.recording_launches() as tally, \
+                    moe.counting_rows() as rows, _gc_paused():
                 self.graph, self.out = backend.capture(timed)
             t2 = time.monotonic()
         self.warm_seconds, self.capture_seconds = t1 - t0, t2 - t1
         self.launches = tally
+        self.moe_rows = (rows.assignments, rows.rows)
         self._in_place = {id(t) for t in _leaves(bound)}
 
     def __call__(self, *fed):

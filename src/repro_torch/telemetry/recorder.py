@@ -52,6 +52,12 @@ Names it records, beside the reference's invocation phases (``route``,
   one recorded on its stream after its argmax (None on the CPU;
   ``DecodeTimer``).  ``gen`` numbers the generation it belongs to.
 
+* expert-row records, one per replay of a generation's prefill or decode
+  step that routes through experts: its kind, its host start (before the
+  copy into the step's graph), and the routed assignments (tokens x top-k)
+  and the expert rows its dispatch computed, summed over its MoE layers,
+  as its capture counted them (``BoundStep.moe_rows``).
+
 Every span and record begun while a torch profiler runs carries
 ``profiled``: its times hold the profiler's own cost.
 
@@ -189,6 +195,19 @@ class DecodeStep:
         self.offset_ns = offset_ns
 
 
+class StepRows:
+    """One replay of a generation's step that routes through experts."""
+    __slots__ = ("gen", "fn", "instance", "kind", "start", "assignments",
+                 "rows", "profiled", "offset_ns")
+
+    def __init__(self, gen, fn, instance, kind, start, assignments, rows,
+                 profiled, offset_ns):
+        self.gen, self.fn, self.instance = gen, fn, instance
+        self.kind, self.start = kind, start
+        self.assignments, self.rows = assignments, rows
+        self.profiled, self.offset_ns = profiled, offset_ns
+
+
 class DecodeTimer:
     """Times the decode steps of one generation: made once the step
     before the first (the prefill) is enqueued, then ``begin()`` before a
@@ -271,9 +290,9 @@ class DecodeTimer:
 
 
 class Recorder(Tracer):
-    """The reference's ``Tracer`` with work spans and decode-step records,
-    each in its own bounded ring, and the offset to the device trace's
-    clock (module docstring)."""
+    """The reference's ``Tracer`` with work spans, decode-step records and
+    expert-row records, each in its own bounded ring, and the offset to the
+    device trace's clock (module docstring)."""
 
     def __init__(self, capacity: int = 4096,
                  clock: Callable[[], float] = time.monotonic,
@@ -284,6 +303,8 @@ class Recorder(Tracer):
         self._ring_lock = threading.Lock()
         self._work: deque = deque(maxlen=work_capacity)
         self._decode: deque = deque(maxlen=decode_capacity)
+        # expert-row records come at the decode records' rate
+        self._rows: deque = deque(maxlen=decode_capacity)
         self._record_ids = itertools.count(1)
         self._instance_ids = itertools.count(1)
         self._instances: "weakref.WeakKeyDictionary" = \
@@ -372,6 +393,20 @@ class Recorder(Tracer):
                 self.dropped_records += 1
             self._decode.append(step)
 
+    def step_rows(self, kind: str, gen, fn, instance, start: float,
+                  counts) -> None:
+        """Record one replay of a step (``kind`` "prefill" or "decode") of
+        generation ``gen`` begun at ``start`` on this tracer's clock;
+        ``counts`` is its step's ``BoundStep.moe_rows``."""
+        if not self.enabled:
+            return
+        rec = StepRows(gen, fn, instance, kind, start, counts[0], counts[1],
+                       profiler_running(), self.offset_ns())
+        with self._ring_lock:
+            if len(self._rows) == self._rows.maxlen:
+                self.dropped_records += 1
+            self._rows.append(rec)
+
     # -- views ------------------------------------------------------------
     def work_spans(self) -> List[WorkSpan]:
         """Finished work spans, oldest first (ring snapshot)."""
@@ -383,11 +418,17 @@ class Recorder(Tracer):
         with self._ring_lock:
             return list(self._decode)
 
+    def row_records(self) -> List[StepRows]:
+        """Expert-row records, oldest first (ring snapshot)."""
+        with self._ring_lock:
+            return list(self._rows)
+
     def clear(self):
         super().clear()
         with self._ring_lock:
             self._work.clear()
             self._decode.clear()
+            self._rows.clear()
             self.dropped_records = 0
 
     def _chrome_events(self) -> List[dict]:
