@@ -37,7 +37,12 @@ Phases, each of which raises on failure (exit code 1):
    strided views of dy, and K3b refusing layouts TMA cannot read; K1
    (bf16 and float32) and K3 launched first thing on a fresh thread, bit
    for bit the main thread's launch (the fabric runs bodies on pool and
-   router threads);
+   router threads); K4, the grouped expert GEMM, against its plain
+   version at the MoE models' decode and prefill shapes, with drops, on
+   an expert slice and in float32 (bf16 within two ulps of the largest
+   output and a 2-norm within 2**-9; its plain version rounds where it
+   does), its routing metadata equal, each call captured and replayed
+   bit for bit;
 4. main: full-width qwen2-0.5b (24 layers, d_model 896, random weights
    from a seed) published to a ``WeightStore`` and served through
    ``ServingEngine``: a cold invoke, a freshened one, a warm one, and a
@@ -280,13 +285,20 @@ KERNEL_META = {
     "rglru_scan_bwd": dict(
         source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
         replaces="src/repro/models/rglru.py:75"),
+    # the reference's experts are batched products outside Pallas: K4
+    # replaces no TPU kernel
+    "moe_grouped": dict(
+        source="src/repro_torch/kernels/csrc/moe_grouped.cu",
+        replaces="none (src/repro/models/moe.py _expert_ffn, outside Pallas)"),
 }
 
 
 # the kernels the served paths launch; the backward kernels, K1b and
-# K3b, run only in training and launch on no served path
+# K3b, run only in training and launch on no served path, and K4 only on
+# the MoE models' (the MoE phases count it)
 SERVING_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
-NO_BWD = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0}
+NOT_LAUNCHED = {"flash_attention_bwd": 0, "rglru_scan_bwd": 0,
+                "moe_grouped": 0}
 # K3b's timed shapes: the training microbatch and one long prompt
 K3B_SHAPES = (("main", 2, 1024, 2560), ("long", 1, 4096, 2560))
 # K1b's device kernels by body: bf16 runs the tensor-core ones, float32
@@ -406,6 +418,22 @@ def phase_build(torch, ops):
             f"blocks of {plan.channels} channels, {plan.stages} stages of "
             f"{plan.steps} steps, {plan.smem_bytes} bytes of dynamic shared "
             f"memory per block")
+    from repro_torch.kernels import moe_grouped as k4
+    k4_smem = getattr(ops.LIBRARY.get("moe_grouped"), k4.SMEM_BYTES)
+    for label, which, K in (("swapped up, d 2048", 0, 2048),
+                            ("swapped down, d_ff 1408", 1, 1408),
+                            ("128-row up", 2, 2048), ("128-row down", 3, 1408),
+                            ("metadata, 64 experts x 16 groups", 4, 64)):
+        size = k4_smem(which, K, 16)
+        check(size <= 232448, f"K4 {label} asks for {size} bytes of shared "
+              f"memory")
+        log(f"  K4 {label}: {size} bytes of dynamic shared memory per block")
+    k4_spills = {k: v for k, v in spills.items() if "moe_" in k}
+    check(len(k4_spills) >= 5, f"K4's device kernels are missing from the "
+          f"build log: {sorted(k4_spills)}")
+    for k in sorted(k4_spills):
+        log(f"  K4 {k}: {regs.get(k, '?')} registers, {k4_spills[k]} bytes "
+            f"of spills")
     return wall
 
 
@@ -611,6 +639,7 @@ def phase_parity(torch, ops, ref):
                                    f"cases x 2 types"}
     n_cases["rglru_scan"] = parity_rglru(torch, ops, ref, gen, errs)
     n_cases["rglru_scan_bwd"] = parity_rglru_bwd(torch, ops, ref, gen, errs)
+    n_cases["moe_grouped"] = parity_moe_grouped(torch, ops, ref, gen, errs)
     errs["per_rank"] = parity_per_rank(torch, ops, ref, gen)
     for kname, e in errs.items():
         if kname == "per_rank":
@@ -619,6 +648,128 @@ def phase_parity(torch, ops, ref):
             f"bf16 {_fmt(e['bfloat16'], '.3e')} over {n_cases[kname]}: ok")
     parity_fresh_thread(torch, ops, gen)
     return errs
+
+
+# K4's cases: (label, T, group, experts, top-k, d, d_ff, capacity factor,
+# first expert of the slice, experts in the slice, dtype); deepseek's and
+# granite's decode steps and prefills at their widths (their capacity
+# drops nothing), a capacity that drops, half the experts as a tensor
+# parallel rank holds them, and the float32 body
+MOE_CASES = (
+    ("deepseek_decode", 4, 512, 64, 6, 2048, 1408, 64 / 6, 0, 64, "bfloat16"),
+    ("deepseek_prefill", 8192, 512, 64, 6, 2048, 1408, 64 / 6, 0, 64,
+     "bfloat16"),
+    ("granite_prefill", 512, 512, 32, 8, 1024, 512, 4.0, 0, 32, "bfloat16"),
+    ("granite_decode", 4, 512, 32, 8, 1024, 512, 4.0, 0, 32, "bfloat16"),
+    ("drops", 1024, 512, 64, 6, 2048, 1408, 1.25, 0, 64, "bfloat16"),
+    ("slice_prefill", 512, 512, 64, 6, 2048, 1408, 64 / 6, 32, 32,
+     "bfloat16"),
+    ("slice_decode", 4, 512, 64, 6, 2048, 1408, 64 / 6, 32, 32, "bfloat16"),
+    ("f32_small", 64, 64, 64, 6, 2048, 1408, 1.25, 0, 64, "float32"),
+    ("f32_large", 1024, 512, 32, 8, 1024, 512, 4.0, 0, 32, "float32"),
+)
+
+
+# K4's plain version rounds where K4 rounds (h to bf16 once from float32,
+# each k slot's product to x's type), so their bf16 outputs part only
+# where the two float32 sums, in different orders, round to neighbours:
+# the largest error stays within two bf16 ulps of the largest output
+# (2**-6 of max |ref|), and the error's 2-norm within 2**-9 of the
+# output's (a rounding's mean relative size); TOL's 3e-2 would pass a
+# wrong gate on a few rows of outputs ~0.1 in size
+K4_BF16_MAX_TOL = 2.0 ** -6
+K4_BF16_L2_TOL = 2.0 ** -9
+
+
+def _k4_err(torch, out, ref):
+    """K4's bf16 output against its plain version: (max abs err, its
+    share of max |ref|, relative 2-norm of the error, within both)."""
+    out, ref = out.float(), ref.float()
+    check(bool(torch.isfinite(out).all()), "kernel output is not finite")
+    err = (out - ref).abs()
+    e, top = float(err.max()), float(ref.abs().max())
+    rel = float(torch.linalg.vector_norm(out - ref)
+                / torch.linalg.vector_norm(ref))
+    return e, e / top, rel, (e <= K4_BF16_MAX_TOL * top
+                             and rel <= K4_BF16_L2_TOL)
+
+
+def moe_inputs(torch, gen, T, E, k, d, d_ff, E_loc, dtype):
+    """Tokens, a router's top-k (softmax gates, not renormalised) and an
+    expert slice's stacks at a model's widths, from ``gen``."""
+    x = _rand(torch, gen, (T, d), dtype)
+    logits = torch.randn((T, E), generator=gen, device="cuda")
+    probs, idx = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    w = {n: (torch.randn(shape, generator=gen, device="cuda")
+             * shape[1] ** -0.5).to(dtype)
+         for n, shape in (("wg_e", (E_loc, d, d_ff)),
+                          ("wi_e", (E_loc, d, d_ff)),
+                          ("wo_e", (E_loc, d_ff, d)))}
+    return x, probs, idx, w
+
+
+def parity_moe_grouped(torch, ops, ref, gen, errs):
+    """K4 against its plain version on the same routing: the metadata
+    (each kept assignment's row, the tile list) equal, the output within
+    TOL in its type, and one call captured as a CUDA graph (which fails
+    on a host sync), its replays bit for bit each other and the eager
+    call."""
+    from repro_torch.models import moe
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import moe_grouped as k4
+    errs["moe_grouped"] = {n: 0.0 for n in BOTH}
+    for label, T, gsz, E, k, d, d_ff, factor, e0, E_loc, dname in MOE_CASES:
+        dtype = getattr(torch, dname)
+        gs = min(gsz, T)
+        C = moe._capacity(gs, MoEConfig(n_experts=E, top_k=k, d_ff=d_ff,
+                                        capacity_factor=factor))
+        x, probs, idx, w = moe_inputs(torch, gen, T, E, k, d, d_ff, E_loc,
+                                      dtype)
+        pos = moe._positions(idx.reshape(T // gs, gs, k), E).reshape(T, k)
+        args = (x, idx, pos, probs, w["wg_e"], w["wi_e"], w["wo_e"])
+        kw = dict(capacity=C, group_size=gs, e0=e0)
+        n0 = ops.moe_grouped.launches
+        out, row_slot, tiles = ops.moe_grouped(*args, **kw, return_plan=True)
+        torch.cuda.synchronize()
+        check(ops.moe_grouped.launches == n0 + 1, f"K4 {label} not counted")
+        want, want_rows, want_tiles = ref.moe_grouped_ref(*args, **kw,
+                                                          return_plan=True)
+        check(torch.equal(row_slot, want_rows)
+              and torch.equal(tiles, want_tiles),
+              f"K4 {label}: the routing metadata differs from the plain "
+              f"version's")
+        if dname == "bfloat16":
+            e, scaled, rel, ok = _k4_err(torch, out, want)
+            note = (f" ({scaled:.3e} of max |ref|, limit "
+                    f"{K4_BF16_MAX_TOL:.3e}; relative 2-norm {rel:.3e}, "
+                    f"limit {K4_BF16_L2_TOL:.3e})")
+        else:
+            (e, ok), note = _err(torch, out, want, dname), ""
+        errs["moe_grouped"][dname] = max(errs["moe_grouped"][dname], e)
+        check(ok, f"K4 {label}: max abs err {e}{note}")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.moe_grouped(*args, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = ops.moe_grouped(*args, **kw)
+        graph.replay()
+        first = static.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(first, static) and torch.equal(first, out),
+              f"K4 {label}: replays differ from each other or the eager "
+              f"call")
+        tl = k4.tiling(T, k, E_loc)
+        live = int((tiles[:, 0] >= 0).sum())
+        log(f"parity moe_grouped [{label}] T {T} group {gs} experts {E} "
+            f"top-{k} slice {e0}+{E_loc} d {d} d_ff {d_ff} capacity {C} "
+            f"{dname}: {tl.rows}-row tiles, {live} of {tl.slots} live, "
+            f"{int((row_slot >= 0).sum())} of {T * k} assignments kept; max "
+            f"abs err {e:.3e}{note}; metadata equal; replays bit for bit")
+    return f"{len(MOE_CASES)} cases"
 
 
 # the heads one rank of a 2-way model axis hands the kernels: (label, Hq,
@@ -1035,7 +1186,8 @@ def served_graphs(rt, rt_gen, prompt, tag, *, n_tok, trace_dir):
     for name, g in (("score", score), ("prefill", pre), ("decode", dec)):
         check(g.graph is not None, f"{tag} {name} step is not a graph")
         out[name] = dict(warm_s=g.warm_seconds, capture_s=g.capture_seconds,
-                         pool_bytes=pool_bytes(torch, g.graph))
+                         pool_bytes=pool_bytes(torch, g.graph),
+                         launches=dict(g.launches), moe_rows=g.moe_rows)
     toks = torch.as_tensor(prompt, device=score.compiled.device)
     _, _, ms, (tok, pos) = greedy_session(torch, pre, dec, toks, n_tok)
     out["decode_ms"] = _median(ms)
@@ -1251,9 +1403,9 @@ def phase_main(torch, np, ops, tmp_root, engines):
                trace_dir=ROOT / "build" / "profile" / "qwen2")
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_layers, "decode_attention": 0,
-                        "rglru_scan": 0, **NO_BWD},
+                        "rglru_scan": 0, **NOT_LAUNCHED},
                    {"flash_attention": 0, "decode_attention": n_layers,
-                    "rglru_scan": 0, **NO_BWD}, N_TOK, "qwen2 bf16")
+                    "rglru_scan": 0, **NOT_LAUNCHED}, N_TOK, "qwen2 bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the main path: {out['launches']}")
@@ -1347,9 +1499,9 @@ def phase_rgemma(torch, np, ops, tmp_root, engines):
                trace_dir=ROOT / "build" / "profile" / "rgemma")
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n_attn, "decode_attention": 0,
-                        "rglru_scan": n_rec, **NO_BWD},
+                        "rglru_scan": n_rec, **NOT_LAUNCHED},
                    {"flash_attention": 0, "decode_attention": n_attn,
-                    "rglru_scan": 0, **NO_BWD}, N_TOK, "rgemma bf16")
+                    "rglru_scan": 0, **NOT_LAUNCHED}, N_TOK, "rgemma bf16")
     check(all(out["launches"][k] > 0 for k in SERVING_KERNELS),
           f"a kernel was not launched on the rgemma path: {out['launches']}")
     _log_served("rgemma bf16", bf, N_TOK, out["launches"])
@@ -1672,18 +1824,37 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
     store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
     out["publish_s"] = _publish(store, tag, params)
 
+    n_moe = sum(kind in MOE_KINDS for kind in cfg.layer_kinds)
     ops.reset_launches()                      # this path's run starts
-    bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
-               max_len=MAX_LEN, n_tok=N_TOK,
-               trace_dir=ROOT / "build" / "profile" / tag)
+    with batched_experts_counted(moe) as batched:
+        bf = serve(np, ops, cfg, store, tag, f"{tag} bf16", prompt, engines,
+                   max_len=MAX_LEN, n_tok=N_TOK,
+                   trace_dir=ROOT / "build" / "profile" / tag)
     out["launches"] = _counts(ops)            # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
-                        "rglru_scan": 0, **NO_BWD},
+                        "rglru_scan": 0, **NOT_LAUNCHED,
+                        "moe_grouped": n_moe},
                    {"flash_attention": 0, "decode_attention": n,
-                    "rglru_scan": 0, **NO_BWD}, N_TOK, f"{tag} bf16")
+                    "rglru_scan": 0, **NOT_LAUNCHED, "moe_grouped": n_moe},
+                   N_TOK, f"{tag} bf16")
     check(out["launches"]["flash_attention"] > 0
-          and out["launches"]["decode_attention"] > 0,
+          and out["launches"]["decode_attention"] > 0
+          and out["launches"]["moe_grouped"] > 0,
           f"a kernel was not launched on the {tag} path: {out['launches']}")
+    # the captured steps run K4 in every MoE layer and no batched expert
+    # product, and count the rows K4 gathers (T * k a layer)
+    check(batched["calls"] == 0, f"{tag}: the served path ran the batched "
+          f"experts {batched['calls']} times")
+    for step, tokens in (("prefill", B * S), ("decode", B)):
+        g = bf["graphs"][step]
+        check(g["launches"].get("moe_grouped") == n_moe
+              and g["moe_rows"] == (n_moe * tokens * cfg.moe.top_k,) * 2,
+              f"{tag} captured {step}: launches {g['launches']}, expert rows "
+              f"{g['moe_rows']}")
+    log(f"{tag} captured prefill and decode: K4 {n_moe} launches each, "
+        f"routed rows = expert rows computed "
+        f"({bf['graphs']['prefill']['moe_rows']}, "
+        f"{bf['graphs']['decode']['moe_rows']}), no batched expert product")
     _log_served(f"{tag} bf16", bf, N_TOK, out["launches"])
     out.update({k: bf[k] for k in ("cold_ms", "freshened_ms", "warm_ms",
                                    "generate_ms", "cold_timing", "graphs",
@@ -1705,6 +1876,35 @@ def serve_family(torch, np, ops, moe, cfg, tag, tmp_root, engines,
         f"{tag} bf16 kernel vs reference path", gate=False)
     out["decode_step_ms"] = out["bf16_teacher_forced"]["decode_step_ms"]
     return out, model, params, toks
+
+
+@contextlib.contextmanager
+def batched_experts_counted(moe):
+    """Count the calls of the batched expert products
+    (``moe._expert_ffn``) inside the block."""
+    calls = {"calls": 0}
+    inner = moe._expert_ffn
+
+    def counted(*a, **kw):
+        calls["calls"] += 1
+        return inner(*a, **kw)
+    moe._expert_ffn = counted
+    try:
+        yield calls
+    finally:
+        moe._expert_ffn = inner
+
+
+@contextlib.contextmanager
+def batched_moe(moe):
+    """``routed`` on its batched path on the card (the yardstick K4 is
+    timed against): the K4 rule answers no inside the block."""
+    rule = moe._grouped
+    moe._grouped = lambda *a: False
+    try:
+        yield
+    finally:
+        moe._grouped = rule
 
 
 def f32_gates(torch, ops, moe, cfg32, variants, prompts, tag):
@@ -1802,8 +2002,9 @@ def phase_mla(torch, np, ops, tmp_root, engines):
                                    reference=False)
     got = _delta(c0, _counts(ops))
     out["absorbed_launches"] = got
+    n_moe = sum(kind in MOE_KINDS for kind in cfg.layer_kinds)
     check(got == {"flash_attention": cfg.n_layers, "decode_attention": 0,
-                  "rglru_scan": 0, **NO_BWD},
+                  "rglru_scan": 0, **NOT_LAUNCHED, "moe_grouped": 4 * n_moe},
           f"absorbed prefill + 3 decode steps launched {got}")
     check(all(bool(torch.isfinite(a).all()) for a in logits_steps),
           "absorbed decode logits not finite")
@@ -2098,9 +2299,9 @@ def serve_dense(torch, np, ops, full, cfg, tag, seed, store, engines):
                    trace_dir=ROOT / "build" / "profile" / tag)
         out["launches"] = _counts(ops)        # ... and ends here
     check_launches(bf, {"flash_attention": n, "decode_attention": 0,
-                        "rglru_scan": 0, **NO_BWD},
+                        "rglru_scan": 0, **NOT_LAUNCHED},
                    {"flash_attention": 0, "decode_attention": n,
-                    "rglru_scan": 0, **NO_BWD}, N_TOK, f"{tag} bf16")
+                    "rglru_scan": 0, **NOT_LAUNCHED}, N_TOK, f"{tag} bf16")
     check(out["launches"]["flash_attention"] > 0
           and out["launches"]["decode_attention"] > 0,
           f"a kernel was not launched on the {tag} path: {out['launches']}")
@@ -2238,7 +2439,7 @@ def dense_chain(torch, np, ops, served, cfgs, store, engines):
     # every stage runs its warm-up forward (inline at stage 0, in the
     # freshen elsewhere) and the request's: 2 K1 per layer, no decode
     want = {"flash_attention": 2 * sum(cfgs[t].n_layers for t in names),
-            "decode_attention": 0, "rglru_scan": 0, **NO_BWD}
+            "decode_attention": 0, "rglru_scan": 0, **NOT_LAUNCHED}
     check(out["launches"] == want,
           f"chain launches {out['launches']} != {want}")
     for tag in names:
@@ -2433,7 +2634,7 @@ def phase_fabric(torch, np, ops, tmp_root, engines):
     cfg = get_config(FABRIC_ARCH)
     B, S = FABRIC_SHAPE
     per_fwd = {"flash_attention": cfg.n_layers, "decode_attention": 0,
-               "rglru_scan": 0, **NO_BWD}
+               "rglru_scan": 0, **NOT_LAUNCHED}
     ops.LIBRARY.load()             # workers only load what this built
     store_root = tempfile.mkdtemp(dir=tmp_root, prefix="weights-")
     store = WeightStore(store_root)
@@ -3557,7 +3758,7 @@ def rollout_versions(torch, np, ops, cfg, tmp_root, engines):
                                      WeightStore)
     B, S = ROLLOUT_SHAPE
     per_fwd = {"flash_attention": cfg.n_layers, "decode_attention": 0,
-               "rglru_scan": 0, **NO_BWD}
+               "rglru_scan": 0, **NOT_LAUNCHED}
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                size=(B, S), dtype=np.int32)
     store = WeightStore(tempfile.mkdtemp(dir=tmp_root, prefix="weights-"))
@@ -3756,7 +3957,7 @@ def rollout_chain(torch, np, ops, cfg, tmp_root, engines):
         out["modes"][label] = m
         forwards = 3 * R + sum(p["instances"] for p in m["pools"].values())
         want = _times({"flash_attention": cfg.n_layers, "decode_attention": 0,
-                       "rglru_scan": 0, **NO_BWD}, forwards)
+                       "rglru_scan": 0, **NOT_LAUNCHED}, forwards)
         check(launches == want,
               f"chain freshen {label}: launches {launches} != {want} "
               f"({forwards} forwards)")
@@ -4203,6 +4404,48 @@ def phase_times(torch, ops, ref):
             bound_by=by)
         row["device_gb_s"] = nbytes / row["device_ms"] / 1e6
         rows[("rglru_scan_bwd", label)] = row
+    # K4 at the MoE models' served shapes (deepseek's decode step is the
+    # main one): its rows' products and, as bytes, the touched experts'
+    # weights read once, the tokens read and the output written; the
+    # yardstick is ``routed``'s batched einsum path on the same routing
+    import types
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    for label, T, gsz, E, k, d, d_ff, factor in (
+            ("main", 4, 512, 64, 6, 2048, 1408, 64 / 6),
+            ("prefill", 8192, 512, 64, 6, 2048, 1408, 64 / 6),
+            ("granite", 512, 512, 32, 8, 1024, 512, 4.0),
+            ("granite_decode", 4, 512, 32, 8, 1024, 512, 4.0)):
+        gs = min(gsz, T)
+        e = MoEConfig(n_experts=E, top_k=k, d_ff=d_ff, capacity_factor=factor,
+                      group_size=gsz)
+        C = moe._capacity(gs, e)
+        x, probs, idx, w = moe_inputs(torch, gen, T, E, k, d, d_ff, E, bf16)
+        pos = moe._positions(idx.reshape(T // gs, gs, k), E).reshape(T, k)
+        args = (x, idx, pos, probs, w["wg_e"], w["wi_e"], w["wo_e"])
+        kw = dict(capacity=C, group_size=gs)
+        used = int(torch.unique(idx).numel())
+        bound, by = _bound(6 * T * k * d * d_ff,
+                           2 * (3 * used * d * d_ff + 2 * T * d) + 4 * T * k)
+        cfg = types.SimpleNamespace(moe=e, activation="swiglu")
+
+        def kern():
+            return ops.moe_grouped(*args, **kw)
+
+        def lib():
+            with batched_moe(moe):
+                return moe.routed(w, x, probs, idx, cfg, gs)
+        rows[("moe_grouped", label)] = dict(
+            shape=f"T={T} group={gs} E={E} top-{k} d={d} d_ff={d_ff} C={C} "
+                  f"bf16, {used} experts touched",
+            library="einsum dispatch",
+            ms=cuda_ms(torch, kern), device_ms=device_ms(torch, kern),
+            plain_ms=cuda_ms(torch, lambda: ref.moe_grouped_ref(*args, **kw),
+                             iters=3, warmup=1),
+            library_ms=cuda_ms(torch, lib, iters=5, warmup=1),
+            library_device_ms=device_ms(torch, lib, iters=5),
+            bound_ms=bound, bound_by=by)
+        del x, probs, idx, w, args
     # K1b at the training path's shape ("main": qwen2, B 4, S 1024) and at
     # gemma2's, MLA's and recurrentgemma's shapes; the yardstick is the
     # backward of sdpa (its forward + backward minus its forward), timed
@@ -4251,9 +4494,10 @@ def phase_times(torch, ops, ref):
     for (name, label), r in rows.items():
         # the factor compares device time with device time
         lib = ("none" if r["library_ms"] is None
-               else f"(sdpa) {r['library_ms']:.4f} ms (device "
-                    f"{r['library_device_ms']:.4f} ms; kernel/sdpa on the "
-                    f"device {r['device_ms'] / r['library_device_ms']:.2f}x)")
+               else f"({r.get('library', 'sdpa')}) {r['library_ms']:.4f} "
+                    f"ms (device {r['library_device_ms']:.4f} ms; kernel/"
+                    f"library on the device "
+                    f"{r['device_ms'] / r['library_device_ms']:.2f}x)")
         log(f"times {name} [{label}] {r['shape']}: kernel {r['ms']:.4f} ms "
             f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
             f"ms, library {lib}, bound {r['bound_ms']:.5f} ms "
@@ -4492,7 +4736,8 @@ def main(argv=None) -> int:
     paths["qwen2-0.5b rollout"] = ro["launches"]
     paths["recurrentgemma-2b train"] = rtr["launches"]
     train_path = {"flash_attention_bwd": "qwen2-0.5b train",
-                  "rglru_scan_bwd": "recurrentgemma-2b train"}
+                  "rglru_scan_bwd": "recurrentgemma-2b train",
+                  "moe_grouped": "deepseek-v2-lite-16b"}
     errs_all = {k: v for k, v in results["errs"].items() if k != "per_rank"}
     errs_all["flash_attention_bwd"] = tr["errs"]["flash_attention_bwd"]
     for k, e in results["errs"]["per_rank"].items():     # K1, K2, K1b
@@ -4530,7 +4775,8 @@ def main(argv=None) -> int:
             rec["lse_max_err_bf16"] = tr["errs"]["lse"]["bfloat16"]
         for label in ("long", "rgemma", "rgemma_long", "long_b4", "gate",
                       "granite", "deepseek", "gemma2", "mla", "phi3",
-                      "nemotron", "pixtral", "musicgen"):
+                      "nemotron", "pixtral", "musicgen", "prefill",
+                      "granite_decode"):
             if (name, label) in results["times"]:
                 t = results["times"][(name, label)]
                 rec[label] = {k: t[k] for k in keys + ("device_gb_s",)

@@ -19,7 +19,10 @@ before.
 Both dispatches give each expert the same capacity per dispatch group and
 drop the same assignments past it (``models/moe.py``), so routing without
 drops takes a capacity that holds a whole group: ``capacity_factor`` at
-least ``n_experts / top_k``.
+least ``n_experts / top_k``.  ``dispatch`` picks the path on the CPU and
+under autograd (training) only: on the card, outside autograd, SwiGLU
+experts take K4 (``kernels/ops.py`` ``moe_grouped``), which drops the same
+assignments and computes the kept rows alone (``models/moe.py``).
 """
 from __future__ import annotations
 

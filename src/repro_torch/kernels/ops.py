@@ -19,7 +19,8 @@ Function is taken only when grad mode is on and an input requires grad;
 otherwise the call is the single K1 or K3 launch serving makes.  K2 has
 no backward (the reference never differentiates a decode step): on CUDA
 tensors that require grad it raises rather than hand back a tensor cut
-from the graph.
+from the graph.  Nor has K4 (the grouped expert GEMM): the MoE layer
+keeps its batched path under autograd, and K4 raises there likewise.
 
 Each op counts its kernel launches in a plain ``launches`` int: the
 kernels that ran on the device.  An eager call adds one where the
@@ -54,6 +55,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd_mod
+from repro_torch.kernels import moe_grouped as _moe_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rglru_mod
 from repro_torch.kernels import rglru_scan_bwd as _rglru_bwd_mod
@@ -66,7 +68,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MODULES = {"flash_attention": _flash_mod,
            "flash_attention_bwd": _flash_bwd_mod,
            "decode_attention": _decode_mod, "rglru_scan": _rglru_mod,
-           "rglru_scan_bwd": _rglru_bwd_mod}
+           "rglru_scan_bwd": _rglru_bwd_mod, "moe_grouped": _moe_mod}
 
 
 def _nvcc() -> str:
@@ -408,13 +410,37 @@ class RGLRUScanBwdOp(KernelOp):
         return grads
 
 
+class MoEGroupedOp(KernelOp):
+    """K4: the routed experts' output (T, d) over the rows of kept
+    assignments (``kernels/moe_grouped.py``); one op call, three device
+    kernels.  ``pos`` is each assignment's rank within its group and
+    expert (``models/moe.py`` ``_positions``)."""
+
+    def __call__(self, x2d, idx, pos, probs, wg, wi, wo, *, capacity: int,
+                 group_size: int, e0: int = 0, return_plan: bool = False):
+        kw = dict(capacity=capacity, group_size=group_size, e0=e0,
+                  return_plan=return_plan)
+        if not _on_cuda(x2d, idx, pos, probs, wg, wi, wo) \
+                or reference_forced():
+            return ref.moe_grouped_ref(x2d, idx, pos, probs, wg, wi, wo, **kw)
+        if _needs_grad(x2d, probs, wg, wi, wo):
+            raise NotImplementedError(
+                "moe_grouped (K4) has no backward: the MoE layer keeps its "
+                "batched path under autograd")
+        out = _moe_mod.launch(self.library.get(self.name), x2d, idx, pos,
+                              probs, wg, wi, wo, **kw)
+        self._counted()
+        return out
+
+
 flash_attention = FlashAttentionOp("flash_attention", LIBRARY)
 flash_attention_bwd = FlashAttentionBwdOp("flash_attention_bwd", LIBRARY)
 decode_attention = DecodeAttentionOp("decode_attention", LIBRARY)
 rglru_scan = RGLRUScanOp("rglru_scan", LIBRARY)
 rglru_scan_bwd = RGLRUScanBwdOp("rglru_scan_bwd", LIBRARY)
+moe_grouped = MoEGroupedOp("moe_grouped", LIBRARY)
 KERNELS = (flash_attention, flash_attention_bwd, decode_attention,
-           rglru_scan, rglru_scan_bwd)
+           rglru_scan, rglru_scan_bwd, moe_grouped)
 
 
 def reset_launches() -> None:

@@ -9,7 +9,9 @@ reference's custom VJP backward (``layers._flash_bwd_rule``) without its
 chunking.  ``rglru_scan_ref`` is the literal recurrence of
 ``repro.kernels.ref.ref_rglru_scan`` and ``rglru_scan_bwd_ref`` its
 gradient, the reverse walk that the VJP of the reference's scan
-computes.  ``kernels/ops.py`` sends CPU tensors here; ``chip_smoke.py``
+computes.  ``moe_grouped_ref`` is K4's arithmetic, the routed experts
+over the rows of kept assignments, with its routing metadata
+(``moe_plan_ref``).  ``kernels/ops.py`` sends CPU tensors here; ``chip_smoke.py``
 holds each CUDA kernel against these on the card.
 """
 from __future__ import annotations
@@ -202,3 +204,74 @@ def rglru_scan_bwd_ref(a, y, h0, dy, dhT):
         da[:, t] = g * (y[:, t - 1] if t > 0 else h_start)
         c = a[:, t] * g
     return da, db, (None if h0 is None else c)
+
+
+def moe_plan_ref(idx, pos, *, capacity: int, group_size: int, e0: int,
+                 n_local: int, tile_rows: int, n_slots: int):
+    """The routing metadata of ``moe_grouped`` (K4's first kernel).
+
+    idx, pos: (T, k) experts and each assignment's rank within its group
+    and expert.  An assignment is kept when its rank is under
+    ``capacity`` and its expert lies in ``[e0, e0 + n_local)``.  Kept
+    assignments take rows in expert-major order: the expert's offset,
+    then its groups' in order, plus the rank.  Returns ``row_slot``
+    (T*k,) int32, the assignment (t * k + j) of each row, -1 past the
+    kept ones; and ``tiles`` (n_slots, 3) int32, (expert, first row,
+    rows) for each run of up to ``tile_rows`` rows of one expert, in
+    expert order, then (-1, 0, 0).  Both shapes are fixed by the call's
+    shapes whatever the routing."""
+    T, k = idx.shape
+    n, G = T * k, T // group_size
+    dev = idx.device
+    e = idx.reshape(n).long() - e0
+    rank = pos.reshape(n).long()
+    live = (e >= 0) & (e < n_local) & (rank < capacity)
+    group = torch.arange(n, device=dev) // k // group_size
+    cell = torch.where(live, e * G + group, n_local * G)       # dead: last
+    kept = torch.zeros(n_local * G + 1, dtype=torch.long, device=dev)
+    kept.index_add_(0, cell, torch.ones_like(cell))
+    base = torch.cumsum(kept, 0) - kept                         # exclusive
+    row_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    row_slot[(base[cell] + rank)[live]] = \
+        torch.arange(n, dtype=torch.int32, device=dev)[live]
+    tiles = torch.tensor([[-1, 0, 0]], dtype=torch.int32).repeat(n_slots, 1)
+    first = base[:-1:G].tolist()
+    counts = kept[:-1].view(n_local, G).sum(1).tolist()
+    s = 0
+    for ex, (r0, cnt) in enumerate(zip(first, counts)):
+        for j in range(0, cnt, tile_rows):
+            tiles[s] = torch.tensor([ex, r0 + j, min(tile_rows, cnt - j)])
+            s += 1
+    return row_slot, tiles.to(dev)
+
+
+def moe_grouped_ref(x2d, idx, pos, probs, wg, wi, wo, *, capacity: int,
+                    group_size: int, e0: int = 0, return_plan: bool = False):
+    """The routed experts' output (T, d) as K4 computes it: each kept
+    assignment's row (``moe_plan_ref``) through its expert's SwiGLU,
+    silu(x W_g) * x W_i from float32 products stored in x's type, then
+    h W_o in float32 times the gate, stored in x's type to the
+    assignment's (T, k) slot; the k slots summed (those not kept are
+    zero).  wg, wi: (E_loc, d, d_ff), wo: (E_loc, d_ff, d), the experts
+    from ``e0`` on.  With ``return_plan`` also the metadata."""
+    from repro_torch.kernels.moe_grouped import tiling
+    T, d = x2d.shape
+    k = idx.shape[1]
+    n_local = wg.shape[0]
+    tl = tiling(T, k, n_local)
+    row_slot, tiles = moe_plan_ref(
+        idx, pos, capacity=capacity, group_size=group_size, e0=e0,
+        n_local=n_local, tile_rows=tl.rows, n_slots=tl.slots)
+    slots = torch.zeros((T * k, d), dtype=x2d.dtype, device=x2d.device)
+    gates = probs.reshape(-1).float()
+    for ex, r0, rows in tiles.tolist():
+        if ex < 0:
+            break
+        slot = row_slot[r0:r0 + rows].long()
+        xs = x2d[slot // k].float()
+        h = (torch.nn.functional.silu(xs @ wg[ex].float())
+             * (xs @ wi[ex].float())).to(x2d.dtype)
+        y = (h.float() @ wo[ex].float()) * gates[slot, None]
+        slots[slot] = y.to(x2d.dtype)
+    out = slots.view(T, k, d).sum(dim=1)
+    return (out, row_slot, tiles) if return_plan else out

@@ -1,15 +1,25 @@
 """Mixture-of-Experts layer of the port (``repro/models/moe.py``): top-k
 routing, a capacity per expert and dispatch group, optional shared
-experts, and two dispatch strategies:
+experts, and three ways to compute the routed experts, which all drop
+the same assignments (those ranked at or past the capacity):
 
 * ``einsum``: GShard-style one-hot dispatch and combine tensors;
 * ``gather``: tokens are placed into a dense (E*C + 1, d) buffer by slot
-  index (the last row takes what overflows) and gathered back.
+  index (the last row takes what overflows) and gathered back;
+* K4 (``kernels/ops.py`` ``moe_grouped``): a grouped SwiGLU GEMM over the
+  rows that carry a kept assignment alone, its routing metadata built on
+  the device.
 
-Both rank each (token, k-slot) within its expert by the same k-major
-cumulative count, so both drop the same assignments.  Expert weights are
-stacked on a leading E axis; the expert products are batched matmuls,
-as the reference computes them outside any Pallas kernel.
+Which runs where: on the card, outside autograd, SwiGLU experts take K4
+whatever ``dispatch`` says (both values name the same function; K4
+computes it without the capacity rows no token fills).  On the CPU
+``dispatch`` picks ``einsum`` or ``gather``, as mirrors of the
+reference.  Under autograd (a tensor that requires grad) the card keeps
+the ``dispatch`` path too: K4 has no backward, and training runs the
+batched products.  Both batched paths rank each (token, k-slot) within
+its expert by the same k-major cumulative count; expert weights are
+stacked on a leading E axis and their products are batched matmuls, as
+the reference computes them outside any Pallas kernel.
 
 The router runs in float32 whatever the model's type: its weight is
 float32 and its input is cast up, so on the card it must run at full
@@ -18,12 +28,13 @@ enough to flip choices near a tie).
 
 While a ``torch.profiler`` runs, each stage of the layer is a named
 range (``moe/routing``, ``moe/dispatch``, ``moe/experts``,
-``moe/combine``), so a trace attributes device time to them; with no
-profiler running the ranges cost one flag test.  ``record_routing()``
-collects each call's choices, each token's top-k margin and the dropped
-assignments, for the card-side gates and the tests.  ``counting_rows()``
-sums what each dispatch computes against what it routes, host integers
-fixed by the shapes: a captured step counts them once, at capture.
+``moe/combine``; K4 is one ``moe/experts`` range), so a trace attributes
+device time to them; with no profiler running the ranges cost one flag
+test.  ``record_routing()`` collects each call's choices, each token's
+top-k margin and the dropped assignments, for the card-side gates and
+the tests.  ``counting_rows()`` sums what each dispatch computes against
+what it routes, host integers fixed by the shapes: a captured step
+counts them once, at capture.
 
 The top-k gates are renormalised to sum to one unless the config keeps
 them raw (``configs/port.py`` ``norm_topk_prob``, DeepSeek-V2).
@@ -40,6 +51,7 @@ import torch.autograd.profiler as _autograd_profiler
 import torch.nn.functional as F
 
 from repro_torch.configs.port import norm_topk_prob
+from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamFactory, dense_init, init_mlp,
                                       mlp_apply)
 
@@ -121,7 +133,8 @@ class RowCount:
     """What the ``routed`` calls on this thread inside a
     ``counting_rows()`` block dispatched, summed: ``assignments`` the
     routed (token, expert) pairs, T * k, and ``rows`` the expert rows
-    computed, E_loc * G * C (capacity rows, used or not)."""
+    computed: E_loc * G * C on the batched paths (capacity rows, used or
+    not), T * k on K4 (the rows it gathers)."""
     assignments: int = 0
     rows: int = 0
 
@@ -229,6 +242,16 @@ def moe_apply(p, x, cfg):
     return out, aux
 
 
+def _grouped(p, x2d, probs, activation: str) -> bool:
+    """Whether ``routed`` runs K4: SwiGLU experts on the card, outside
+    autograd (K4 has no backward)."""
+    if not x2d.is_cuda or activation != "swiglu":
+        return False
+    return not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x2d, probs, p["wg_e"], p["wi_e"],
+                                  p["wo_e"])))
+
+
 def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
     """The routed experts' output (T, d) for tokens ``x2d`` (T, d) with
     their top-k ``probs`` and ``idx`` (T, k), in dispatch groups of
@@ -236,29 +259,41 @@ def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
     hold a slice of the experts, from global expert ``e0`` on (a tensor
     parallel rank's): capacity and each assignment's rank are counted
     over all experts, and only the slice's experts are computed, so the
-    slices' outputs sum to the whole.  Returns (out2d, keep, C, G)."""
+    slices' outputs sum to the whole.  On the card outside autograd K4
+    computes it (``_grouped``); elsewhere ``cfg.moe.dispatch``'s batched
+    path.  Returns (out2d, keep, C, G)."""
     e = cfg.moe
     T, d = x2d.shape
     x = x2d
     if T % gs:
         raise ValueError(f"{T} tokens are not a whole number of dispatch "
                          f"groups of {gs}")
+    if e.dispatch not in ("einsum", "gather"):
+        raise ValueError(e.dispatch)
     G = T // gs
     C = _capacity(gs, e)
     E, k = e.n_experts, e.top_k
     E_loc = p["wi_e"].shape[0]
     whole = E_loc == E
+    grouped = _grouped(p, x2d, probs, cfg.activation)
     count = getattr(_counting, "count", None)
     if count is not None:
         count.assignments += T * k
-        count.rows += E_loc * G * C
+        count.rows += T * k if grouped else E_loc * G * C
 
     with _stage("dispatch"):
-        xg = x2d.reshape(G, gs, d)
         idx_g = idx.reshape(G, gs, k)
-        probs_g = probs.reshape(G, gs, k)
         pos = _positions(idx_g, E)
         keep = pos < C
+    if grouped:
+        with _stage("experts"):
+            out2d = ops.moe_grouped(x2d, idx, pos.reshape(T, k), probs,
+                                    p["wg_e"], p["wi_e"], p["wo_e"],
+                                    capacity=C, group_size=gs, e0=e0)
+        return out2d, keep, C, G
+    with _stage("dispatch"):
+        xg = x2d.reshape(G, gs, d)
+        probs_g = probs.reshape(G, gs, k)
         if e.dispatch == "einsum":
             # (G, gs, k, E, C) one-hot dispatch tensor
             disp = (_one_hot(idx_g, E, x.dtype)[..., :, None]
@@ -269,7 +304,7 @@ def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
                 disp = disp[..., e0:e0 + E_loc, :]
                 disp_tok = disp_tok[..., e0:e0 + E_loc, :]
             expert_in = torch.einsum("gsec,gsd->gecd", disp_tok, xg)
-        elif e.dispatch == "gather":
+        else:
             slot = torch.where(keep, idx_g * C + pos, E * C)  # overflow row
             buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype,
                               device=x.device)
@@ -278,8 +313,6 @@ def routed(p, x2d, probs, idx, cfg, gs: int, e0: int = 0):
             expert_in = buf[:, :-1].reshape(G, E, C, d)
             if not whole:
                 expert_in = expert_in[:, e0:e0 + E_loc]
-        else:
-            raise ValueError(e.dispatch)
         expert_in = expert_in.transpose(0, 1).reshape(E_loc, G * C, d)
     with _stage("experts"):
         expert_out = _expert_ffn(p, expert_in, cfg.activation)

@@ -6,9 +6,15 @@ for 16 assignments per expert on average: the default capacity drops).
 * Routing, capacity, both dispatches (with drops and, at capacity factor
   8, without), the dense oracle, shared experts and each activation
   against the JAX functions at 1e-5 (routing at 1e-6).
+* K4's route (``grouped``: ``routed`` as it runs on the card, here
+  through the op's plain version, ``kernels/ref.py`` ``moe_grouped_ref``)
+  on the same inputs against the JAX functions, with and without drops,
+  and with top-k gates kept raw (DeepSeek-V2) at 4 experts top-2 and 64
+  top-6: the raw gates are the renormalised ones times their sum, so the
+  JAX output scaled by that sum is the want.
 * The reduced model: forward hidden states, logits and aux at 1e-4, and
   prefill plus 8 greedy decode steps with identical tokens under both
-  dispatches; cache and param shapes and types.
+  dispatches and K4's route; cache and param shapes and types.
 * The weight bridge keeps every leaf's shape and type, the float32
   router of a bf16 model included.
 
@@ -36,6 +42,7 @@ from repro.models import transformer as jtransformer  # noqa: E402
 from repro_torch.checkpoint import (flatten_with_paths, load_pytree,  # noqa: E402
                                     params_from_numpy, tree_map)
 from repro_torch.configs import get_config as port_get_config  # noqa: E402
+from repro_torch.configs.port import PortMoEConfig, port_config  # noqa: E402
 from repro_torch.models import make_model  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 
@@ -58,6 +65,16 @@ def _cfgs(dtype="float32", **moe_kw):
 
 def _np(t):
     return t.detach().float().numpy()
+
+
+def _dispatch(monkeypatch, dispatch):
+    """The config's ``dispatch`` for a case.  ``grouped`` forces
+    ``routed`` onto K4's route, whose op runs its plain version on CPU
+    tensors; the config keeps ``einsum``, which that route does not read."""
+    if dispatch != "grouped":
+        return dispatch
+    monkeypatch.setattr(moe, "_grouped", lambda *a: True)
+    return "einsum"
 
 
 def _jax_flat(tree):
@@ -195,15 +212,18 @@ def test_capacity_at_the_served_shapes():
 # ---------------------------------------------------------------------------
 # the layer
 @pytest.mark.parametrize("factor", [1.25, 8.0])
-@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
-def test_moe_apply_matches_jax(granite, dispatch, factor):
+@pytest.mark.parametrize("dispatch", ["einsum", "gather", "grouped"])
+def test_moe_apply_matches_jax(granite, monkeypatch, dispatch, factor):
     """Two dispatch groups; at the default capacity some assignments are
     dropped, at factor 8 none are."""
-    jcfg, pcfg = _cfgs(dispatch=dispatch, capacity_factor=factor)
+    jcfg, pcfg = _cfgs(dispatch=_dispatch(monkeypatch, dispatch),
+                       capacity_factor=factor)
     jx, tx = _x(2)
     jout, jaux = jmoe.moe_apply(granite["jffn"], jx, jcfg)
-    with moe.record_routing() as rec:
+    with moe.record_routing() as rec, moe.counting_rows() as count:
         out, aux = moe.moe_apply(granite["tffn"], tx, pcfg)
+    if dispatch == "grouped":       # K4's route computed the kept rows
+        assert count.rows == count.assignments == 128
     np.testing.assert_allclose(_np(out), np.asarray(jout), **FN_TOL)
     np.testing.assert_allclose(float(aux), float(jaux), **ROUTE_TOL)
     (call,) = rec.calls
@@ -215,6 +235,42 @@ def test_moe_apply_matches_jax(granite, dispatch, factor):
         np.testing.assert_allclose(_np(out), np.asarray(ref_out), **FN_TOL)
     else:
         assert call["capacity"] == 20 and dropped > 0
+
+
+def _raw(pcfg):
+    """``pcfg`` with its top-k gates kept as the softmax gave them."""
+    fields = {f.name: getattr(pcfg.moe, f.name)
+              for f in dataclasses.fields(pcfg.moe)}
+    return port_config(pcfg, moe=PortMoEConfig(**fields,
+                                               norm_topk_prob=False))
+
+
+@pytest.mark.parametrize("factor", [1.25, "dropless"])
+@pytest.mark.parametrize("experts", [(4, 2), (64, 6)])
+def test_grouped_raw_gates_match_jax(monkeypatch, experts, factor):
+    """K4's route with DeepSeek-V2's raw gates against the JAX layer,
+    which renormalises: each token's output is the JAX one times the sum
+    of its top-k softmax gates (the drops are the same, as they follow
+    the choices alone)."""
+    E, k = experts
+    jcfg, pcfg = _cfgs(n_experts=E, top_k=k, capacity_factor=(
+        E / k if factor == "dropless" else factor))
+    jp = jmoe.init_moe(jax.random.PRNGKey(7), jcfg)
+    tp, pcfg = _bridge(jp), _raw(pcfg)
+    jx, tx = _x(8)
+    jout, jaux = jmoe.moe_apply(jp, jx, jcfg)
+    gates = jax.nn.softmax(jx.reshape(-1, jx.shape[-1]) @ jp["router"], -1)
+    total = jax.lax.top_k(gates, k)[0].sum(-1)
+    assert float(total.max()) < 1.0
+    want = np.asarray(jout) * np.asarray(total).reshape(B, -1, 1)
+    monkeypatch.setattr(moe, "_grouped", lambda *a: True)
+    with moe.record_routing() as rec, moe.counting_rows() as count:
+        out, aux = moe.moe_apply(tp, tx, pcfg)
+    assert count.rows == count.assignments == B * 32 * k
+    np.testing.assert_allclose(_np(out), want, **FN_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **ROUTE_TOL)
+    (call,) = rec.calls
+    assert (int(call["dropped"]) > 0) == (factor == 1.25)
 
 
 def test_dispatches_drop_the_same_assignments(granite):
@@ -356,16 +412,19 @@ def test_forward_aux_stays_a_tensor_with_its_graph(granite, models):
     assert zero.dtype == torch.float32 and float(zero) == 0.0
 
 
-@pytest.mark.parametrize("dispatch", ["einsum", "gather"])
-def test_prefill_and_greedy_decode_match_jax(granite, models, dispatch):
+@pytest.mark.parametrize("dispatch", ["einsum", "gather", "grouped"])
+def test_prefill_and_greedy_decode_match_jax(granite, models, monkeypatch,
+                                             dispatch):
     """Prefill (B*S = 32: one dispatch group) and 8 greedy decode steps:
     logits within 1e-4 at every step, identical tokens, caches equal."""
-    jm, tm, jfns = models[dispatch]
+    jm, tm, jfns = models[_dispatch(monkeypatch, dispatch)]
     jp, tp = granite["jp"], granite["tp"]
     toks = _tokens()
     jl, jc = jfns["prefill"](jp, jnp.asarray(toks), max_len=MAX_LEN)
-    with torch.no_grad():
+    with torch.no_grad(), moe.counting_rows() as count:
         tl, tc = tm.prefill(tp, torch.from_numpy(toks), max_len=MAX_LEN)
+    if dispatch == "grouped":       # K4's route computed the kept rows
+        assert count.rows == count.assignments > 0
     np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=ATOL, rtol=0)
     jtok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
     ttok = torch.argmax(tl[:, -1:], dim=-1).to(torch.int32)
